@@ -1,7 +1,7 @@
 // framesink: asynchronous PNG frame writer for the engine's record path.
 //
 // The reference's host runtime is native (Rust) end to end; in this engine
-// the compute path is JAX/XLA on TPU and the only host-side hot loop left is
+// the compute path is JAX/XLA on the accelerator and the only host-side hot loop left is
 // frame IO — PNG-encoding a 1080p frame in Python (PIL) costs ~50 ms on this
 // box's single core, which would serialize the whole interactive/record
 // loop.  This C++ component owns that path: a bounded queue + worker threads

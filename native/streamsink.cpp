@@ -1,9 +1,9 @@
 // streamsink: native HTTP MJPEG server for live viewing of engine frames.
 //
 // The reference presents frames in a native OS window (winit/Vulkan
-// swapchain, reference: src/boilerplate.rs + src/debugui.rs).  On a headless
-// TPU host there is no display, so the TPU-native analog is a push stream: an
-// embedded HTTP server that serves multipart/x-mixed-replace JPEG
+// swapchain, reference: src/boilerplate.rs + src/debugui.rs).  On a
+// headless accelerator host there is no display, so the analog is a push
+// stream: an embedded HTTP server that serves multipart/x-mixed-replace JPEG
 // (the de-facto "MJPEG over HTTP" protocol every browser understands).
 // Point a browser at http://host:port/ and the simulation is live.
 //
@@ -19,7 +19,7 @@
 // Interaction: the page captures keydown/keyup and fires GET /key?d=1&k=a
 // back at the server; events land in a bounded queue the simulation thread
 // drains via ss_poll_keys each frame (the reference's winit keyboard events,
-// src/keyboard.rs:3-45, routed over HTTP for a headless TPU host).
+// src/keyboard.rs:3-45, routed over HTTP for a headless host).
 //
 // C API (ctypes-friendly):
 //   void* ss_create(const char* bind_addr, int port, int width, int height,

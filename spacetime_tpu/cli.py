@@ -4,7 +4,7 @@ The reference has no CLI (a hard-coded windowed demo, SURVEY.md §5); this is
 the headless equivalent of its app loop plus the config system it lacked.
 
 Usage:
-    python -m spacetime_tpu --config single_blob --frames 60 --out /tmp/frames
+    python -m spacetime_tpu --config single_blob --frames 60 --out frames
     python -m spacetime_tpu --config two_body_collision --frames 30 --stats
     python -m spacetime_tpu --config flagship_1080p --frames 10 --save ckpt.npz
 """
@@ -57,7 +57,6 @@ def main(argv=None) -> int:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 
     from .engine import Engine, save_png
     from .utils.config import get_config
@@ -118,7 +117,7 @@ def main(argv=None) -> int:
 
     # keyboard events posted by the live-view page (GET /key) steer the
     # running engine: pan/zoom/pause/max-FPS/mode toggles — the reference's
-    # interactive window (keyboard.rs + debugui.rs) for a headless TPU host.
+    # interactive window (keyboard.rs + debugui.rs) for a headless host.
     # (The stream is created lazily on the first frame; poll once it exists.)
     key_source = None
     if args.serve is not None:

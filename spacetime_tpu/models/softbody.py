@@ -17,17 +17,8 @@ import jax
 import jax.numpy as jnp
 
 from ..constants import DEFAULT_PARAMS, PhysicsParams
-from ..ops import grid as grid_ops
 from ..ops import rk4 as rk4_ops
 from ..state import Particles
-
-
-def default_bin_resolution(params: PhysicsParams) -> float:
-    """Pallas sorted-window binning resolution for a physics config:
-    0.002 is the measured optimum at the default collision_distance
-    (PERF.md round-3 sweep), floored by collision_distance so window
-    coverage can never break on custom physics."""
-    return max(0.002, float(params.collision_distance))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,59 +30,17 @@ class SoftbodyModel:
     # Dense cell-grid live extent = grid_dim * grid_resolution lightseconds
     # (512 -> 2.56 ls); the origin floats with the scene each step.
     grid_dim: int = 512
-    # Two interpenetrating lattices pack 8 particles per 0.005-cell
-    # (4 each at 0.0035 spacing).
-    cell_capacity: int = 8
+    # Two interpenetrating lattices pack 8 particles per 0.005-cell at rest
+    # (4 each at 0.0035 spacing); 16 leaves room for the compression of an
+    # impact (at 8 the flagship scene drops candidates from frame ~115 on).
+    # Candidates past it are lost forces (StepAux.grid_overflow); the
+    # engine doubles it on that evidence.
+    cell_capacity: int = 16
     integrator: str = "rk4"
-    # Pallas sorted-window collision kernel (TPU backends only); None = auto
-    use_pallas: Optional[bool] = None
     # per-slot neighbor index offsets (forces.derive_spring_offsets) — when
-    # set, springs and bond breaking read bonded positions by static shifted
-    # slices instead of row gathers (needs a lattice-padded scene layout)
+    # set, bond breaking reads bonded positions by static shifted slices
+    # instead of row gathers (needs a lattice-padded scene layout)
     spring_offsets: Optional[tuple] = None
-    # Pallas collision-kernel sorted-window cap (elements); must exceed the
-    # densest ~3 grid rows of particles or StepAux.window_truncated fires
-    # (wide scenes — e.g. the 2^20 capacity run — need more than the default)
-    wmax: int = 4096
-    # particles per kernel grid step (window DMA granularity).  128 beat 256
-    # by ~9% at the 116k reference scene (smaller own-span -> smaller merged
-    # window; 64 loses to DMA-descriptor overhead — r3 sweep in PERF.md)
-    tile: int = 128
-    # sublane rows per window DMA (8 = the classic 1024-element chunk).
-    # Smaller chunks scan fewer overscan candidates per window when rows
-    # are short — the sub-1024-granularity experiment (VERDICT r4 #2)
-    chunk_sub: int = 8
-    # BINNING resolution for the Pallas sorted-window path only — physics is
-    # exact at any value >= collision_distance (windows are supersets; the
-    # in-kernel distance test decides).  Finer rows mean fewer candidates
-    # per 3-row window: 0.002 (= collision_distance) cut the 116k step
-    # 14.05 -> 10.72 ms vs the reference's 0.005 hash-grid resolution
-    # (twoplusone/mod.rs:24; the XLA fallback path keeps that value —
-    # its dense cell table scales with cell count, the sorted windows
-    # don't).  The kernel grid dim rescales to keep the same live extent.
-    # None derives max(0.002, params.collision_distance) at step time so a
-    # custom collision_distance can never under-resolve the binning (the
-    # kernel asserts bin_resolution >= collision_distance).
-    bin_resolution: Optional[float] = None
-    # one kernel span per grid row instead of a merged 3-row window: wins
-    # when rows are DENSE (the 2^20 capacity scene: ~4k particles/row makes
-    # the merged window ~8 DMA chunks of mostly-far candidates); loses at
-    # sparse rows where the merged window is already ~1 chunk
-    split_windows: bool = False
-    # (Mesh, axis_name): run the Pallas collision kernel under shard_map —
-    # the multi-chip production-kernel path (parallel/sharding.py wires it);
-    # None = single-chip pallas_call
-    shard: Optional[tuple] = None
-    # force Pallas interpret mode (CPU-mesh multi-chip tests)
-    pallas_interpret: bool = False
-
-    def __post_init__(self):
-        if self.use_pallas is None:
-            import jax
-
-            object.__setattr__(
-                self, "use_pallas", jax.default_backend() == "tpu"
-            )
 
     def rest_lengths(self) -> jax.Array:
         return jnp.asarray(self.params.rest_lengths())
@@ -102,59 +51,24 @@ class SoftbodyModel:
         (reference: softbody/mod.rs:557-596).  `materials` is an optional
         ops.materials.ParticleMaterials pytree (per-particle stiffness /
         damping / break-threshold planes)."""
-        return rk4_ops.physics_step(
-            particles,
-            self.params,
-            self.rest_lengths(),
-            self.grid_dim,
-            self.cell_capacity,
-            self.integrator,
-            self.use_pallas,
-            self.spring_offsets,
-            wmax=self.wmax,
-            tile=self.tile,
-            materials=materials,
-            split_windows=self.split_windows,
-            pallas_interpret=self.pallas_interpret,
-            shard=self.shard,
-            bin_resolution=self._bres(),
-            chunk_sub=self.chunk_sub,
-        )
+        return self._physics_step(particles, materials)
 
-    def _bres(self) -> float:
-        """Pallas binning resolution: explicit value, or derived so a
-        custom collision_distance can never under-resolve the bins."""
-        if self.bin_resolution is not None:
-            return self.bin_resolution
-        return default_bin_resolution(self.params)
+    def _physics_step(self, particles, materials):
+        return rk4_ops.physics_step(
+            particles, self.params, self.rest_lengths(), self.grid_dim,
+            self.cell_capacity, self.integrator, self.spring_offsets,
+            materials=materials,
+        )
 
     @partial(jax.jit, static_argnames=("self", "n_steps"))
     def step_n(self, particles: Particles, n_steps: int, materials=None
                ) -> tuple[Particles, rk4_ops.StepAux]:
-        """`n_steps` frames fused into one XLA program via lax.scan —
-        the TPU-native equivalent of queueing multiple physics submissions
-        without host round-trips."""
+        """`n_steps` frames fused into one XLA program via lax.scan — the
+        equivalent of queueing multiple physics submissions without host
+        round-trips."""
 
         def body(p, _):
-            p, aux = rk4_ops.physics_step(
-                p,
-                self.params,
-                self.rest_lengths(),
-                self.grid_dim,
-                self.cell_capacity,
-                self.integrator,
-                self.use_pallas,
-                self.spring_offsets,
-                wmax=self.wmax,
-                tile=self.tile,
-                materials=materials,
-                split_windows=self.split_windows,
-                pallas_interpret=self.pallas_interpret,
-                shard=self.shard,
-                bin_resolution=self._bres(),
-                chunk_sub=self.chunk_sub,
-            )
-            return p, aux
+            return self._physics_step(p, materials)
 
         particles, auxs = jax.lax.scan(body, particles, None, length=n_steps)
         last = jax.tree.map(lambda a: a[-1], auxs)

@@ -34,7 +34,7 @@ The warp's Jacobian has maximum singular value gamma*(1+|v|) (attained
 radially ahead of the motion), used to scale splat reach conservatively in
 ops/raytrace._splat_keys.
 
-Everything is componentized scalar-plane math (PERF.md design rule 2) and
+Everything is componentized scalar-plane math and
 safe to call inside Pallas kernels (pure jnp, no gathers).
 """
 

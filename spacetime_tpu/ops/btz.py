@@ -562,9 +562,8 @@ def _btz_retina(pairs: PairData, cam, t_now, hole: BTZBlackHole, dt, rho,
     # the footprint itself)
     w_ang = (rho + half_sweep) / jnp.maximum(chart_d, 1e-6)
 
-    # dense chunked (rays x pairs) masked-min — scalar scatter-mins
-    # serialize on TPU (~30 ms at pair budget; PERF.md design rule 1), the
-    # dense sweep is pure VPU
+    # dense chunked (rays x pairs) masked-min: elementwise vector math and
+    # a reduction, no per-element scatter-min
     betas = (jnp.arange(n_rays, dtype=jnp.float32) + 0.5) * (
         2.0 * _PI / n_rays
     ) - _PI

@@ -43,7 +43,7 @@ up to 95% of extremality (tests/test_btz_exact.py; the in-tree oracle's
 horizon floor is corrected to the true outer horizon r_+ there).
 
 Cost: ~50 bisection steps x 2 closed-form segment evaluations per (point,
-route) — roughly 100x the slow-rotation delay evaluation, all dense VPU
+route) — roughly 100x the slow-rotation delay evaluation, all dense vector
 math.  Opt-in via RenderParams.btz_exact_spin.
 """
 

@@ -19,8 +19,8 @@ comparing global particle indices.  Self-exclusion follows the reference's
 position-equality semantics via the dist > 0 test (softbodyrk4.glsl:99).
 
 Layout: all gathered intermediates are scalar component planes ((N, C), not
-(N, C, 2)) — TPU pads 2-wide trailing dims to 128 lanes, which would inflate
-the candidate gathers 64x in HBM (see ops/worldline.py layout note).
+(N, C, 2)), so every gather reads and writes contiguous planes (see
+ops/worldline.py layout note).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ def collision_forces(
     dist = jnp.sqrt(dx * dx + dy * dy)
     is_self = cand_idx == jnp.arange(n, dtype=cand_idx.dtype)[:, None]
     # unrolled over the 8 bond slots: keeps every intermediate at (N, C)
-    # instead of materializing a lane-padded (N, C, 8) comparison tensor
+    # instead of materializing an (N, C, 8) comparison tensor
     is_bond = jnp.zeros_like(cand_valid)
     for s in range(neighbors.shape[1]):
         is_bond = is_bond | (cand_idx == neighbors[:, s][:, None])
@@ -100,8 +100,8 @@ def total_forces(
 
 # ---------------------------------------------------------------------------
 # Row-gather fast path (dense cell table) — see ops/grid.py CellTable notes.
-# Scalar gathers serialize on TPU (~8.7 ns/elem); everything below uses ROW
-# gathers (~2.5 ns/row) or static-offset lookups instead.
+# Everything below fetches a particle's packed row with ONE row gather, or
+# uses static-offset lookups, instead of one scalar gather per component.
 # ---------------------------------------------------------------------------
 
 
@@ -167,8 +167,7 @@ def derive_spring_offsets(neighbors, max_offsets: int = 8):
     With a lattice-padded scene layout (scene.mask_to_softbody
     lattice_pad=True) every slot has one constant offset per object
     ({±1, ±W, ±W±1} for bbox width W), so bonded positions can be read by
-    static shifted slices instead of row gathers (whose 16x lane padding
-    traced at ~3 ms per force evaluation at reference demo scale).  Returns
+    static shifted slices instead of row gathers.  Returns
     a tuple of 8 offset tuples, or None when a slot has more than
     `max_offsets` distinct values (irregular graph -> use the gather path).
     Bond BREAKING only writes -1, so offsets derived at setup stay valid.

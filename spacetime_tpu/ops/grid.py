@@ -7,7 +7,7 @@ UPDATE_START_INDICES marks the first occurrence of each key
 (reference: src/twoplusone/softbody/collision_grid_update.glsl:49-98, host
 sort ladder src/twoplusone/softbody/mod.rs:707-767).
 
-TPU-native redesign: one `jax.lax.sort_key_val` (XLA's fused on-device sort
+Redesign: one `jax.lax.sort_key_val` (XLA's fused on-device sort
 replaces the 55-dispatch bitonic ladder), a scatter-min for start indices, a
 scatter-add for cell counts, and a *fixed-capacity* candidate gather so the
 downstream force kernel is fully regular (no data-dependent loops — the
@@ -52,8 +52,7 @@ class CollisionGrid:
 
 
 def hash_cell_xy(cx: jax.Array, cy: jax.Array, table_mask: int) -> jax.Array:
-    """Scalar-component cell hash (avoids materializing (..., 2) arrays,
-    whose 2-wide trailing dim pads to 128 lanes on TPU)."""
+    """Scalar-component cell hash (no (..., 2) arrays are materialized)."""
     x = cx.astype(jnp.uint32)
     y = cy.astype(jnp.uint32)
     h = x * jnp.uint32(0x9E3779B1) ^ (y * jnp.uint32(0x85EBCA77))
@@ -145,9 +144,8 @@ def grid_overflow(grid: CollisionGrid, cell_capacity: int) -> jax.Array:
 # Dense halo cell table (the fast physics path)
 # ---------------------------------------------------------------------------
 #
-# TPU microbenchmarks (2026-08-16, v5e): scalar gathers cost ~8.7 ns/element
-# (serialized), row gathers ~2.5 ns/row.  The hash-grid candidate gather
-# above costs (N, 9*K) SCALAR gathers per force evaluation; this dense table
+# The hash-grid candidate gather above costs (N, 9*K) SCALAR gathers per
+# force evaluation; this dense table
 # replaces it with 9 static-offset ROW gathers: particles are binned into a
 # dense (cells+halo, cap) slot grid whose per-cell rows hold positions, so a
 # particle's 9-cell neighborhood is 9 row lookups.  The one-cell halo makes

@@ -5,7 +5,7 @@ pan+zoom, colored by object — "measured reality" with no light-travel delay
 (reference: src/twoplusone/softbody/point_render_nr.rs:32-91,
 points_norel.glsl:1-52; clear color white per boilerplate.rs render pass).
 
-TPU-native: a scatter into an (H, W, 3) image instead of a point-list
+A scatter into an (H, W, 3) image instead of a point-list
 graphics pipeline.  Last-write-wins on overlapping pixels, like unordered
 point rasterization.
 """

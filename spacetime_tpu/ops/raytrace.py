@@ -21,36 +21,31 @@ affine in ``tau``, so squared distance is quadratic — one clamp + one
 division per candidate.  This replaces the reference's unfinished
 boundary-mesh + BVH design (worldline/mod.rs:37-44,
 object_archive.txt:249-287) with something exact for the disc-union geometry
-and fully regular on TPU.
+and regular enough to run as dense array programs.
 
-Acceleration structure (TPU-native: no BVH, no dynamic stacks, no scalar
-gathers in hot loops — see PERF.md for the measured costs that forced this):
+Acceleration structure (no BVH, no dynamic stacks):
   1. *Light-cone band search* — because |v| < c while the cone radius grows
      at exactly c per tick, f(age) = dist(age) - age*dt is strictly monotone:
      each worldline crosses the cone in EXACTLY ONE contiguous tick band.  A
-     per-particle binary search (log2 T flat probes) plus one contiguous
-     window gather from the mirrored (N, 2T) buffer yields all candidate
-     segments in a static (N, band) layout — O(N log T), independent of
-     history length, no (T, N) mask, no compaction scatter.
-  2. *View-cell binning* — candidate segments splat (one sort + segmented-
-     cummax ranks + one scatter) into cells that COINCIDE with cell_px^2
+     dense sweep over the swept ages plus a window extraction yields all
+     candidate segments in a static (N, band) layout — no (T, N) candidate
+     mask, no compaction scatter.
+  2. *View-cell binning* — candidate segments splat (one sort by a
+     (cell, distance-quantile) key) into cells that COINCIDE with cell_px^2
      pixel blocks of the image, so pixel <-> candidate matching is pure index
-     arithmetic; candidate data densifies via one row gather per cell.
+     arithmetic.
   3. *1D retina* — the camera is a point, so occlusion needs one first-hit
      march per ANGLE (``num_rays``), not per pixel.  Rays test the candidate
-     list as a dense chunked broadcast (no gathers, exact).
-  4. *Per-pixel retarded occupancy* — each k x k pixel block broadcast-tests
-     its own cell's candidates on the VPU; winners are selected by masked
-     reduction (one-hot), never argmin + take_along.
+     list as a dense chunked broadcast (exact).
+  4. *Per-pixel retarded occupancy* — each k x k pixel block tests its own
+     cell's candidates: either the XLA block map below or the fused kernel
+     in ops/pixel_triton.py (paths.py chooses by platform).
 
-Total work is O(N log T + pairs log pairs + rays*pairs + pixels*capacity).
+Total work is O(N T_swept + pairs log pairs + rays*pairs + pixels*capacity).
 
-Layout rule (hard-won): every hot-path array is a SCALAR COMPONENT plane —
-no broadcasted (..., 2) vectors, no (..., 3) rgb tensors.  TPU tiles the two
-minor dims as (8, 128); a 2- or 3-wide trailing dim pads to 128 lanes (64x /
-42x HBM inflation; the first 1080p run OOM'd on exactly this).  Public image
-output is (H, W, 3) by default; `planar=True` returns (3, H, W) and avoids
-materializing the padded interleaved form on device.
+Hot-path arrays are scalar component planes (separate x / y / r / g / b
+arrays) rather than (..., 2) or (..., 3) tensors.  Public image output is
+(H, W, 3) by default; `planar=True` returns (3, H, W).
 
 Shading: special-relativistic Doppler (source motion composed with observer
 motion) with an approximate spectral shift of the RGB channels, plus
@@ -70,6 +65,7 @@ import numpy as np
 
 from ..camera import Camera, pixel_centers
 from ..constants import C2
+from .. import paths
 from ..state import Objects
 from .worldline import WorldlineBuffer
 
@@ -101,19 +97,17 @@ class RenderParams:
     bin_capacity: int = 64  # candidates per spatial hash cell
     num_rays: int = 2048  # 1D retina resolution (occlusion only)
     # pairs per scan chunk in the retina march: bigger chunks amortize the
-    # per-chunk reduce/loop overhead (16 chunks of 2048 cost ~1.1 ms at the
-    # flagship scene vs ~0.4 ms at 8192, traced round 3)
+    # per-chunk reduce/loop overhead
     ray_chunk: int = 8192
     cell_px: int = 16  # view-cell edge in pixels; k*pixel_size must be >= reach
     # compact valid pairs to this budget before the splat sort when the raw
     # N*band layout is larger (0 = never compact); bounds the binning cost at
     # large particle counts (reference demo scale: 686k slots -> 131k)
     pair_budget: int = 131072
-    # static cap on SORTED splat entries kept for rank/scatter binning
-    # (0 = all pair_budget * splat_cells entries).  The bin scatter is the
-    # single largest render op at reference-demo scale (2.4 ms traced for
-    # 524k entries of which only ~229k were valid): a prefix slice of the
-    # sorted entries halves it, because invalid keys sort to the END.
+    # static cap on SORTED splat entries kept for binning (0 = all
+    # pair_budget * splat_cells entries).  Invalid keys sort to the END, so
+    # a prefix slice of the sorted entries keeps every valid one while they
+    # fit, and the binning after the sort runs on the smaller slice.
     # Overflow (valid entries beyond the budget) drops whole high-index
     # cells — spatially coherent image loss — so RenderDiag.entry_dropped
     # flags it and the engine doubles the budget on evidence.
@@ -134,7 +128,7 @@ class RenderParams:
     # (ops/btz_exact.py: closed-form integrals + branch-bracketed
     # bisection) instead of the O(J^2) slow-rotation model — exact at any
     # |J| < M l, including near-extremal spins where the drag model breaks
-    # down.  ~100x the delay-evaluation cost (still dense VPU math).
+    # down.  ~100x the delay-evaluation cost (still dense elementwise math).
     btz_exact_spin: bool = False
     opaque: bool = True  # False = x-ray: no occlusion shading
     retarded: bool = True  # False = instantaneous view of the newest tick
@@ -149,18 +143,17 @@ class RenderParams:
     # instantaneous boosted view would need a per-event simultaneity
     # re-slice, which the ring stores no data for).  Flat spacetime only.
     camera_frame: bool = False
-    # pixel-pass backend: "auto" = Pallas kernel on TPU / XLA block map on
-    # CPU; "pallas" / "pallas_interpret" / "xla" force a choice
+    # pixel-pass backend: "auto" = the platform's choice (paths.py);
+    # "xla" / "triton" name one explicitly
     backend: str = "auto"
+    # tests only: run the Triton pixel pass in Pallas interpret mode (CPU)
+    triton_interpret: bool = False
     # occlusion retina lookup granularity: 1 = per pixel (exact); d = one
     # lookup per d x d pixel quad (at the quad center angle — the radial
-    # blocked test stays per-pixel exact).  The per-pixel row gather is the
-    # single most expensive render op at 1080p (~4 ms traced); d=2 quarters
-    # it for <= 1 px of angular shadow-edge jitter (the 4096-ray retina
-    # itself quantizes edges to ~1.6 px at screen edge).  Ignored unless it
-    # divides cell_px.  Default 2: the engine-vs-headline-bench audit
-    # (round 3) found the per-pixel default cost ~5 ms/frame at 1080p for
-    # sub-retina-resolution gains; ACCURACY.md documents the envelope.
+    # blocked test stays per-pixel exact).  d=2 quarters the lookups for
+    # <= 1 px of angular shadow-edge jitter (the 4096-ray retina itself
+    # quantizes edges to ~1.6 px at screen edge).  Ignored unless it divides
+    # cell_px; ACCURACY.md documents the envelope.
     occlusion_downsample: int = 2
     # cells each candidate splats into: 9 (3x3 around the center cell —
     # always exact) or 4 (nearest-corner 2x2 — exact iff reach <= cell/2,
@@ -170,16 +163,11 @@ class RenderParams:
     splat_cells: int = 9
     # oldest worldline age (ticks) the cone sweep scans; 0 = the full ring.
     # Light can only arrive from within max_view_distance/dt ticks, so a
-    # view-derived bound skips most of a long history's sweep (the sweep is
-    # HBM-bound: 4 plane-reads of (N, T) per frame).  Must cover the
+    # view-derived bound skips most of a long history's sweep (the sweep
+    # reads 4 (N, T) planes per frame).  Must cover the
     # farthest visible point + margin or distant matter silently vanishes
     # (engine._render_params derives it from the zoom each frame).
     max_age: int = 0
-    # use the fused Pallas band-search/window kernel (ops/band_pallas.py)
-    # instead of the XLA dense sweep.  OFF by default: at the 116k scene the
-    # kernel measured ~1.5 ms SLOWER than XLA's fused sweep chain (see
-    # PERF.md round-3 log) — kept as an opt-in baseline for future tuning.
-    band_kernel: bool = False
     # occlusion-retina pair budget when a boundary mask is supplied: only
     # SURFACE particles' capsules can be first hits (interior discs sit
     # behind an overlapping boundary layer: rho 0.0026 > spacing/2), so the
@@ -187,25 +175,17 @@ class RenderParams:
     # the worldline-meshgen "extrude the boundary" idea of the reference
     # (worldline/mod.rs:37-44) recast as candidate culling.  0 = march all
     # pairs.  RenderDiag.retina_dropped flags overflow, and the engine
-    # doubles the budget on evidence (engine._check_diag) — marching ALL
-    # pairs by default cost ~3 ms/frame at the flagship scene (round-3
-    # engine-vs-bench audit) for surfaces the boundary mask already culls.
+    # doubles the budget on evidence (engine._check_diag).
     retina_budget: int = 8192
     doppler: bool = True
     beaming: bool = True
-    # (Mesh, axis_name): shard the Pallas pixel pass's cell rows over the
-    # mesh via shard_map (parallel/sharding.make_sharded_frame sets this so
-    # multi-chip runs the production kernel, not the XLA fallback)
-    shard: object = None
     doppler_strength: float = 1.0
     # physically-based spectral Doppler (opt-in, ACCURACY.md #10 upgrade):
     # each surface emits as a blackbody at `spectral_temp` kelvin tinted by
     # its albedo; the observed channel photometry is the EXACT frequency-form
     # Planck ratio under the total Doppler factor D (shade_channels), which
     # includes relativistic beaming exactly (the 3-band hat model and the
-    # D^3 beaming flag are ignored in this mode).  Spectral shading runs on
-    # the XLA pixel path (_resolve_backend forces it; the Pallas kernel
-    # mirrors the default model only).
+    # D^3 beaming flag are ignored in this mode).
     spectral: bool = False
     spectral_temp: float = 6500.0  # rest-frame emitter temperature (K)
     ambient: float = 0.15  # fraction of unshifted base color mixed in
@@ -218,12 +198,18 @@ class RenderParams:
         return self.rho + 0.5 * self.dt
 
 
+def min_cell_edge(params: RenderParams) -> float:
+    """Least view-cell edge (world units) for which splatting is exact: a
+    3x3 splat needs reach, a nearest-corner 2x2 splat twice that."""
+    return params.reach * (2.0 if params.splat_cells == 4 else 1.0)
+
+
 def auto_cell_px(params: RenderParams, width: int, height: int, zoom: float) -> int:
     """Smallest view-cell edge (pixels) satisfying the coverage constraint
-    cell_px * pixel_size >= reach, so a capsule splatted into its 3x3 cells
-    is visible from every pixel it can cover."""
+    cell_px * pixel_size >= min_cell_edge, so a capsule splatted into its
+    cells is visible from every pixel it can cover."""
     pixel_size = zoom / max(width, height)
-    return max(1, int(-(-params.reach // pixel_size)))
+    return max(1, int(-(-min_cell_edge(params) // pixel_size)))
 
 
 class RenderDiag(NamedTuple):
@@ -414,16 +400,13 @@ def _occupancy_xy(px, py, t_e, ax, ay, bx, by, ta, dt, rho):
 
 
 # ---------------------------------------------------------------------------
-# Shared pixel-pass machinery (view-cell aligned, fully dense)
+# Shared pixel-pass machinery (view-cell aligned)
 # ---------------------------------------------------------------------------
 #
-# TPU microbenchmarks (see ops/grid.py): scalar gathers serialize at
-# ~8.7 ns/element — a per-pixel hash lookup at 1080p costs >1 s/frame.  The
-# aligned design removes per-pixel gathers entirely: the image is tiled into
-# k x k pixel blocks (k = cell_px) that coincide exactly with the candidate
-# binning cells, so pixel <-> candidate matching is pure INDEX ARITHMETIC
-# (static slices + lane-axis take_along_axis), and candidate data is fetched
-# once per CELL (row gathers) instead of once per pixel.
+# The image is tiled into k x k pixel blocks (k = cell_px) that coincide
+# exactly with the candidate binning cells, so pixel <-> candidate matching
+# is pure index arithmetic and candidate data is fetched once per CELL
+# instead of once per pixel.
 
 
 class ViewTables(NamedTuple):
@@ -451,20 +434,12 @@ def _cone_band_window(buf: WorldlineBuffer, route_lengths, params: RenderParams,
     arrays are (N, band+1) ticks covering ages [a0-1, a0+band-1].
 
     Search: ONE DENSE sweep over the (N, T) age block — f(age) =
-    route(pos(age)) - age*dt evaluated on two contiguous column slices of the
-    mirrored (N, 2T) planes, then a masked min/max reduction.  This replaces
-    the round-1 binary search (log2 T rounds of 2 scalar gathers each): the
-    flat gathers lowered to a serialized ~13 ns/element path (traced), while
-    the dense sweep streams at HBM speed (~0.15 ms for 16k x 1024 vs ~1.5 ms).
+    route(pos(age)) - age*dt evaluated on a contiguous slice of the mirrored
+    (2T, N) planes, then a masked min/max reduction.
 
     Window fetch: MASKED-REDUCE extraction from the same dense slices —
-    wx[:, j] = sum_t s[:, t] * (t == c0 + j) — instead of a flat element
-    gather.  The flat gather serialized at ~11 ns/element (9.2 ms PER PLANE
-    at the 116k reference demo scale, traced); the w extractions fuse into a
-    few streaming passes over data the sweep already touches.  (A row-pair
-    gather via plane.reshape(-1, 8) was also tried and REVERTED: the reshape
-    changes the (8, 128) tile layout of the 21M-element plane — 16 ms/frame
-    of relayout copies, traced.)
+    wx[:, j] = sum_t s[:, t] * (t == c0 + j) — which fuses into the passes
+    over data the sweep already reads.
     """
     dt, rho, band = params.dt, params.rho, params.band
     t_cap = buf.capacity
@@ -481,43 +456,7 @@ def _cone_band_window(buf: WorldlineBuffer, route_lengths, params: RenderParams,
     # younger endpoint) can reference an unswept tick: out-of-slice columns
     # extract as 0.0 and would otherwise ghost through the annulus test
     hi0 = jnp.minimum(hi0, a_sw - 1)
-
-    # --- fused Pallas band kernel (Euclidean route, TPU backends): streams
-    # the position planes ONCE for search + extraction (ops/band_pallas.py)
-    backend, interpret = _resolve_backend(params)
     w = band + 1
-
-    def _window_cols(a0):
-        """Window start columns + per-column ages for a band start a0 —
-        shared by the Pallas and XLA branches (parity-critical indexing)."""
-        start_col = jnp.clip(base_col - (a0 + band - 1), 0, 2 * t_cap - w)
-        ages = base_col - (
-            start_col[:, None] + jnp.arange(w, dtype=jnp.int32)[None, :]
-        )
-        return start_col, ages
-
-    # the kernel's extraction buffer needs eb history rows — mirror its own
-    # assert so an oversized band falls back to the XLA sweep instead of
-    # tripping a trace-time AssertionError (review r3)
-    _erows = max(16, ((band + 1 + 8 + 7) // 8) * 8)
-    if (
-        params.band_kernel
-        and cam is not None and route_lengths is None and backend == "pallas"
-        and a_sw % 128 == 0 and n % 256 == 0 and (2 * t_cap) % 8 == 0
-        and 2 * t_cap >= _erows + 8
-    ):
-        from . import band_pallas
-
-        a0, alast, wx, wy, wvx, wvy = band_pallas.cone_band_window_pallas(
-            buf.pos_x, buf.pos_y, buf.vel_x, buf.vel_y,
-            col0.astype(jnp.int32), hi0.astype(jnp.int32),
-            base_col.astype(jnp.int32),
-            cam.pos[0], cam.pos[1], jnp.float32(dt), jnp.float32(thresh),
-            a_sw=a_sw, band=band, interpret=interpret,
-        )
-        truncated = jnp.sum((alast >= a0 + band).astype(jnp.int32))
-        _, ages = _window_cols(a0)
-        return a0, hi0, truncated, (wx, wy, wvx, wvy, ages)
 
     if route_lengths is None:
         route_lengths = _euclid_route(cam.pos[0], cam.pos[1])
@@ -536,7 +475,10 @@ def _cone_band_window(buf: WorldlineBuffer, route_lengths, params: RenderParams,
     truncated = jnp.sum((a_last >= a0 + band).astype(jnp.int32))
 
     # --- window fetch: ages [a0+band-1 .. a0-1] as ascending columns ---
-    start_col, ages = _window_cols(a0)
+    start_col = jnp.clip(base_col - (a0 + band - 1), 0, 2 * t_cap - w)
+    ages = base_col - (
+        start_col[:, None] + jnp.arange(w, dtype=jnp.int32)[None, :]
+    )
     # window column j (mirrored coords start_col + j) sits at slice row
     # c0 + j; rows outside the slice (clipped starts / age >= A / age < 0)
     # extract as 0 and are masked by the age-range validity downstream
@@ -576,11 +518,8 @@ def _band_pairs(
     Because |v| < c while the light-cone radius grows at exactly c per tick,
     f(age) = dist_to_camera(age) - age*dt is strictly decreasing in age, so
     each particle's worldline crosses the cone in EXACTLY ONE contiguous
-    band of ticks.  A per-particle binary search (log2 T probes, each one
-    flat gather of N elements) finds the band start; a contiguous window
-    gather from the mirrored (N, 2T) planes fetches band+1 ticks; validity
-    is re-checked exactly per segment.  Total cost is O(N log T + N*band),
-    independent of history length T.
+    band of ticks.  _cone_band_window finds the band start and fetches
+    band+1 ticks; validity is re-checked exactly per segment.
 
     `route_lengths(qx, qy) -> distance` customizes the cone metric (curved
     space); default is Euclidean distance to the camera.
@@ -642,7 +581,7 @@ def _band_pairs(
         # The cone crossing spans (dt + 2*rho) / (dt * (1 - v_r)) ticks, so
         # while `band` slots must be SEARCHED (fast approachers), the mean
         # VALID count is ~1.1 at reference-demo scale — most of the
-        # (N, band) pdata rows the stack/transpose and the compaction sort
+        # (N, band) pdata rows the stack and the compaction sort
         # pay for are invalid.  Rank-select the first `segments` valid
         # segments per particle with masked sums (pure elementwise — no
         # sorts, no gathers); particles with more valid segments than slots
@@ -671,18 +610,10 @@ def _band_pairs(
 
     far = 2.0e9
     keep = lambda v: jnp.where(valid, v, far).reshape(-1)
-    # one row gather for all three albedo channels (three scalar (N,)
-    # gathers here traced 2.1 ms at 116k; 8-wide rows are the fast class)
-    crows = jnp.zeros((objects.base_color.shape[0], 8), jnp.float32)
-    crows = jax.lax.dynamic_update_slice(crows, objects.base_color, (0, 0))
-    prgb = crows[obj_index]  # (N, 8)
+    prgb = objects.base_color[obj_index]  # (N, 3)
     col = lambda c: jnp.broadcast_to(
         prgb[:, c][:, None], (n, band)
     ).reshape(-1)
-    # field-major stack + one explicit transpose: stacking 10 (rows,)
-    # columns along the MINOR axis makes XLA write every column with a
-    # 10-element stride (1.19 ms traced at 116k); the (10, rows) stack is
-    # 10 contiguous plane copies and the transpose a single relayout pass
     pdata = jnp.stack(
         [
             keep(qax), keep(qay), keep(qbx), keep(qby),
@@ -690,8 +621,8 @@ def _band_pairs(
             pvx.reshape(-1), pvy.reshape(-1),
             col(0), col(1), col(2),
         ],
-        axis=0,
-    ).T
+        axis=-1,
+    )
     return PairData(
         pdata=pdata,
         pair_valid=valid.reshape(-1),
@@ -708,10 +639,9 @@ def _compact_pairs_to_budget(pairs: "PairData", budget: int) -> "PairData":
         return pairs
     mask = pairs.pair_valid
     # stable sort on the 1-bit validity key floats valid rows to the front in
-    # original order (a cumsum + scalar scatter here traced 2.4 ms at 116k;
-    # the (rows,) sort runs ~0.7 ms).  Key and row index PACK into one u32
+    # original order.  Key and row index PACK into one u32
     # (1 validity bit << 30 | row, rows < 2^30 always) so the sort moves ONE
-    # operand instead of two — TPU sort cost scales with operand bytes.
+    # operand instead of two.
     src = jnp.arange(rows, dtype=jnp.uint32)
     packed = ((~mask).astype(jnp.uint32) << 30) | src
     spacked = jax.lax.sort(packed)
@@ -730,8 +660,7 @@ def _compact_pairs_two_segment(pairs: "PairData", first_mask, budget: int):
     """Compact like _compact_pairs_to_budget but write pairs matching
     `first_mask` at the FRONT of the buffer.  The boundary-only occlusion
     retina then reads a STATIC prefix slice instead of paying a second
-    cumsum+scatter compaction over the raw layout (traced ~2.7 ms at
-    reference demo scale).  Returns (PairData, n_first)."""
+    compaction over the raw layout.  Returns (PairData, n_first)."""
     rows = pairs.pdata.shape[0]
     mask = pairs.pair_valid
     fm = mask & first_mask
@@ -739,11 +668,9 @@ def _compact_pairs_two_segment(pairs: "PairData", first_mask, budget: int):
     if budget <= 0 or budget >= rows:
         budget = rows
     # three-way stable sort key: boundary pairs (0) < other valid (1) <
-    # invalid (2).  Replaces two cumsums + a scalar scatter (traced 2.4 ms
-    # at 116k) with one (rows,) sort (~0.7 ms); order within each class is
-    # preserved (lax.sort is stable).  Key and row index PACK into one u32
-    # (2 class bits << 30 | row, rows < 2^30 always): a single-operand sort
-    # halves the sorted bytes vs (key, val) — traced 1.37 -> ~0.7 ms at 116k.
+    # invalid (2); order within each class is preserved (lax.sort is
+    # stable).  Key and row index PACK into one u32 (2 class bits << 30 |
+    # row, rows < 2^30 always): a single-operand sort.
     key = jnp.where(fm, 0, jnp.where(mask, 1, 2)).astype(jnp.uint32)
     src = jnp.arange(rows, dtype=jnp.uint32)
     spacked = jax.lax.sort((key << 30) | src)
@@ -757,13 +684,8 @@ class PairData(NamedTuple):
     """Cone-crossing segments in the static (N * band) layout.
 
     Shading inputs (velocity, albedo) are resolved PER PAIR here so the
-    per-pixel pass selects them by masked reduction with zero gathers.
-
-    All builders emit the 10 _F_* columns; _splat_windows reshapes gathered
-    rows into 80-lane W-rows of 8 entries x 10 fields (a 16-field zero pad
-    was tried round 5 and REVERTED: the padded rows inflated the window
-    gather + relayout and the kernel DMA by 60% — ~1 ms/frame at 116k —
-    for no win; 80-wide row gathers are row-count-bound, not width-bound)."""
+    per-pixel pass reads them with the winning candidate.  All builders
+    emit the 10 _F_* columns."""
 
     pdata: jax.Array  # (N * band, 10) f32 — see _F_* field order
     pair_valid: jax.Array  # (N * band,)
@@ -859,8 +781,7 @@ def _splat_keys(
     val = jnp.broadcast_to(
         jnp.arange(pcap, dtype=jnp.int32)[:, None], (pcap, n_splat)
     ).reshape(-1)
-    # coverage constraint: 3x3 splat needs lam >= reach; 2x2 needs 2*reach
-    min_lam = params.reach * (2.0 if params.splat_cells == 4 else 1.0)
+    min_lam = min_cell_edge(params)
     if params.camera_frame:
         from . import boost
 
@@ -870,35 +791,74 @@ def _splat_keys(
     return key, val, wc, hc, geom, cell_too_small
 
 
-def _splat_vslot(
+def _sorted_entries(
     pairs: PairData, cam, width: int, height: int, params: RenderParams
 ):
-    """Splat compacted pairs into the (view cells + 1 halo) grid and return
-    the per-cell candidate id table: (vslot (hc_img, wc_img, cap) i32 with -1
-    for empty, bin_dropped, cell_too_small, geometry)."""
-    cap = params.bin_capacity
+    """Splat entries sorted by (cell, distance-quantile) key: the entries of
+    one cell are contiguous, nearest first.  Returns (scell, sval, wc, hc,
+    geom, cell_too_small, entry_dropped) with scell the halo-grid cell of
+    each sorted entry (wc * hc for invalid entries) and sval its pair row."""
     key, val, wc, hc, geom, cell_too_small = _splat_keys(
         pairs, cam, width, height, params
     )
     n_vcells = wc * hc
-
     skey, sval = jax.lax.sort_key_val(key, val)
     entry_dropped = jnp.int32(0)
     if 0 < params.entry_budget < skey.shape[0]:
         # invalid keys (= n_vcells * _DQ sentinel) sort to the END, so the
         # prefix holds every valid entry as long as their count fits the
-        # budget; the rank cummax + id scatter then run on the (much)
-        # smaller slice.  Overflow loses the HIGHEST-key cells (bottom image
-        # rows) — entry_dropped flags it for the engine to grow the budget.
+        # budget; the binning then runs on the (much) smaller slice.
+        # Overflow loses the HIGHEST-key cells (bottom image rows) —
+        # entry_dropped flags it for the engine to grow the budget.
         eb = params.entry_budget
         n_valid = jnp.sum((key < n_vcells * _DQ).astype(jnp.int32))
         entry_dropped = jnp.maximum(n_valid - eb, 0)
         skey = jax.lax.slice_in_dim(skey, 0, eb, axis=0)
         sval = jax.lax.slice_in_dim(sval, 0, eb, axis=0)
-    scell = skey // _DQ  # cell part of the composite key
-    n_entries = skey.shape[0]
-    # rank within each sorted CELL run via segmented cummax (no scatter-min +
-    # re-gather: those cost ~12 ms/frame at 1080p, cummax streams on the VPU)
+    return skey // _DQ, sval, wc, hc, geom, cell_too_small, entry_dropped
+
+
+def _splat_ranges(
+    pairs: PairData, cam, width: int, height: int, params: RenderParams
+):
+    """Per-image-cell ranges of the sorted splat entries, for the fused
+    pixel kernel: returns (lo, cnt, edat, bin_dropped, entry_dropped,
+    cell_too_small, geom) with lo/cnt (n_img_cells,) i32 in row-major cell
+    order and edat (E, 10) the pair rows in sorted-entry order.  A cell keeps
+    its first bin_capacity (nearest) entries, the same candidates in the same
+    order as _splat_vslot; the rest count in bin_dropped."""
+    scell, sval, wc, _hc, geom, cell_too_small, entry_dropped = (
+        _sorted_entries(pairs, cam, width, height, params)
+    )
+    wc_img, hc_img = geom[0], geom[1]
+    # interior cell (r, c) is halo cell (r+1)*wc + c+1; each image row's
+    # cells are consecutive halo ids, so one query per cell plus one past
+    # the row end gives every [start, end) window
+    rows0 = (jnp.arange(hc_img, dtype=jnp.int32) + 1) * wc + 1
+    q = rows0[:, None] + jnp.arange(wc_img + 1, dtype=jnp.int32)[None, :]
+    starts = jnp.searchsorted(scell, q, side="left").astype(jnp.int32)
+    lo = starts[:, :-1]
+    n_all = starts[:, 1:] - lo
+    cnt = jnp.minimum(n_all, params.bin_capacity)
+    bin_dropped = jnp.sum(n_all - cnt)
+    edat = pairs.pdata[sval]
+    return (lo.reshape(-1), cnt.reshape(-1), edat, bin_dropped, entry_dropped,
+            cell_too_small, geom)
+
+
+def _splat_vslot(
+    pairs: PairData, cam, width: int, height: int, params: RenderParams
+):
+    """Splat compacted pairs into the (view cells + 1 halo) grid and return
+    the per-cell candidate id table: (vslot (hc_img, wc_img, cap) i32 with -1
+    for empty, bin_dropped, entry_dropped, cell_too_small, geometry)."""
+    cap = params.bin_capacity
+    scell, sval, wc, hc, geom, cell_too_small, entry_dropped = (
+        _sorted_entries(pairs, cam, width, height, params)
+    )
+    n_vcells = wc * hc
+    n_entries = scell.shape[0]
+    # rank within each sorted CELL run via segmented cummax
     idx = jnp.arange(n_entries, dtype=jnp.int32)
     is_start = jnp.concatenate(
         [jnp.ones((1,), bool), scell[1:] != scell[:-1]]
@@ -908,9 +868,7 @@ def _splat_vslot(
     fits = (scell < n_vcells) & (rank < cap)
     dump = n_vcells * cap
     slot = jnp.where(fits, scell * cap + rank, dump)
-    # id scatter + row gather.  (A direct .at[slot].set of the 10-float pair
-    # rows was tried and REVERTED: the row scatter serialized at ~13 ms/frame
-    # traced; the id scatter + row-gather pair runs at ~3 ms.)
+    # id scatter here; _build_view_tables gathers the pair rows
     vslot = jnp.full((n_vcells * cap + 1,), -1, jnp.int32)
     vslot = vslot.at[slot].set(sval)
     vslot = vslot.at[dump].set(-1)
@@ -945,202 +903,6 @@ def _build_view_tables(
     return ViewTables(vdat=vdat, vok=vok, n_img_cells=n_img_cells), bin_dropped, entry_dropped, cell_too_small, geom
 
 
-def _splat_windows(
-    pairs: PairData, cam, width: int, height: int, params: RenderParams,
-    sort_cells: bool = False,
-):
-    """Pallas-kernel bin layout, scatter-free (the round-5 "bin-fold").
-
-    Replaces the vslot id scatter (1.21 ms traced at 116k) and the
-    (cells x cap) row gather + transpose (2.07 ms) of the _splat_vslot /
-    row-gather pair (removed round 5) with sorted-entry windows:
-
-      1. sort splat entries by composite (cell, distance-quantile) key —
-         entries of one cell are CONTIGUOUS in sorted order, nearest first;
-      2. per-interior-cell [start, end) windows via ONE vectorized
-         searchsorted over the sorted keys (hc * (wc+1) consecutive-key
-         queries — cell boundaries share endpoints);
-      3. gather pair rows once in SORTED-ENTRY order (entry_budget rows, not
-         cells x cap), pack 8 entries x 10 fields per 80-lane row, and
-         fetch each cell's 8-aligned window rows with one more row gather;
-      4. the kernel masks slots by index (lo <= j < hi per cell lane)
-         instead of sentinel candidates, and loops a PER-GROUP dynamic depth
-         (max occupied W-rows of its 128 cells) instead of a static cap.
-
-    Candidate retention is s_rows*8 - lo_off >= bin_capacity per cell
-    (alignment slack can only retain MORE than the vslot path's cap);
-    overflow drops the farthest-quantile entries exactly like the vslot
-    path and is counted in bin_dropped for the engine's adaptation.
-
-    Returns (vdat_t (S, 10, hc*wcp) f32, lo (hc, wcp) i32, hi (hc, wcp) i32,
-    depth (hc, wgroups) i32, bin_dropped, entry_dropped, cell_too_small,
-    geom, cid, perm).
-
-    `sort_cells=True` reorders the cells by WINDOW DEPTH before grouping
-    (the round-5 occupancy sort): per-cell candidate counts are bimodal
-    (p50 = 0, p90 ~ 89 at the 116k demo), so row-major 128-cell groups pay
-    the loop depth of their fullest member while most lanes idle.  Sorting
-    makes groups depth-homogeneous — empty cells collapse into depth-0
-    groups the kernel skips entirely, and Sum_g max(depth) approaches
-    Sum_g mean(depth).  The layout then has hc = n_groups, wgroups = 1,
-    `cid` (G, 128) carries each lane's image cell id (the kernel derives
-    pixel coords from it), and `perm` (G*128,) maps sorted slot -> cell for
-    the caller's output unscramble.  Row-major mode returns cid=perm=None.
-    """
-    cap = params.bin_capacity
-    key, val, wc, hc, geom, cell_too_small = _splat_keys(
-        pairs, cam, width, height, params
-    )
-    n_vcells = wc * hc
-    wc_img, hc_img = geom[0], geom[1]
-
-    skey, sval = jax.lax.sort_key_val(key, val)
-    entry_dropped = jnp.int32(0)
-    if 0 < params.entry_budget < skey.shape[0]:
-        # see _splat_vslot: invalid keys sort to the END, so a prefix slice
-        # keeps every valid entry while it fits the budget
-        eb = params.entry_budget
-        n_valid = jnp.sum((key < n_vcells * _DQ).astype(jnp.int32))
-        entry_dropped = jnp.maximum(n_valid - eb, 0)
-        skey = jax.lax.slice_in_dim(skey, 0, eb, axis=0)
-        sval = jax.lax.slice_in_dim(sval, 0, eb, axis=0)
-    n_entries = skey.shape[0]
-
-    # pad sorted entries to whole 8-entry W-rows (sentinel keys sort-last)
-    e8 = -(-n_entries // 8)
-    pad = e8 * 8 - n_entries
-    if pad:
-        skey = jnp.pad(skey, (0, pad), constant_values=n_vcells * _DQ)
-        sval = jnp.pad(sval, (0, pad))
-
-    # Per-cell run starts over the sorted entries.  A vectorized
-    # searchsorted (8228 queries x 18 binary-search rounds) traced 2.1 ms
-    # and a direct 262k scatter-min ~1.8 ms; instead: compact the run-START
-    # entries to the front with one packed single-operand sort (run starts
-    # number at most n_vcells+1 << entries), scatter-min their positions
-    # into the tiny (n_vcells+2,) table, and suffix-min so EMPTY cells
-    # inherit the next run's start (making every [start[c], start[c+1])
-    # window correct, zero-length for empty cells).
-    n_e8 = e8 * 8
-    scell = skey // _DQ
-    is_start = jnp.concatenate(
-        [jnp.ones((1,), bool), scell[1:] != scell[:-1]]
-    )
-    eidx = jnp.arange(n_e8, dtype=jnp.uint32)
-    spk = jax.lax.sort(
-        jnp.where(is_start, eidx, jnp.uint32(1 << 31) | eidx)
-    )
-    kmax = min(n_vcells + 2, n_e8)
-    pos = (spk[:kmax] & jnp.uint32(0x7FFFFFFF)).astype(jnp.int32)
-    okst = (spk[:kmax] >> 31) == 0
-    cell_at = jnp.where(okst, scell[pos], n_vcells + 1)
-    # non-start slots must scatter the BIG sentinel: a small garbage pos at
-    # the dump slot would propagate backward through the suffix-min
-    pos = jnp.where(okst, pos, jnp.int32(n_e8))
-    table = jnp.full((n_vcells + 2,), jnp.int32(n_e8), jnp.int32)
-    table = table.at[jnp.clip(cell_at, 0, n_vcells + 1)].min(pos)
-    table = jnp.flip(jax.lax.cummin(jnp.flip(table)))
-
-    # interior cell (r, c) = halo cell (r+1)*wc + (c+1); each image row
-    # reads wc_img+1 CONSECUTIVE table slots, so window ends are the next
-    # cell's starts (halo-column entries fall between interior runs and
-    # outside every window by construction)
-    rows0 = (jnp.arange(hc_img, dtype=jnp.int32) + 1) * wc + 1
-    qc = rows0[:, None] + jnp.arange(wc_img + 1, dtype=jnp.int32)[None, :]
-    starts = table[qc]
-    lo_all = starts[:, :-1]
-    cnt = starts[:, 1:] - lo_all
-    s_rows = -(-(cap + 7) // 8)  # W-rows per cell (>= cap at any alignment)
-    start8 = lo_all // 8
-    lo_off = lo_all - start8 * 8
-    # retain exactly bin_capacity (s_rows*8 - lo_off >= cap always): the
-    # alignment slack could hold a few more, but the XLA path drops at cap,
-    # and backend parity is worth more than <8 extra candidates
-    retained = jnp.minimum(cnt, cap)
-    bin_dropped = jnp.sum(jnp.maximum(cnt - retained, 0))
-    need = lo_off + retained  # exclusive last slot the kernel must scan
-
-    if sort_cells:
-        # occupancy sort (see docstring): group cells by window depth so the
-        # kernel's per-group loop bound tracks the sorted distribution, not
-        # each row-major group's fullest member.  Pack (depth, cell) into
-        # one u32 so a single-operand sort yields the permutation.
-        n_cells = hc_img * wc_img
-        s_slots = s_rows * 8
-        assert n_cells < (1 << 21) and s_slots < (1 << 11), (
-            "occupancy-sort key packing: need n_cells < 2^21, depth < 2^11"
-        )
-        g = -(-n_cells // 128)
-        npad = g * 128 - n_cells
-        needf = need.reshape(-1)
-        keyd = (needf.astype(jnp.uint32) << 21) | jnp.arange(
-            n_cells, dtype=jnp.uint32
-        )
-        # carry (lo_all, retained) through the sort as ONE packed payload
-        # operand instead of three post-sort scalar gathers — the gathers
-        # plus their pads traced ~0.5 ms of latency-bound micro-ops at 116k
-        assert n_e8 < (1 << 21), "payload packing: entry slots < 2^21"
-        payload = (
-            lo_all.reshape(-1).astype(jnp.uint32) << 11
-        ) | retained.reshape(-1).astype(jnp.uint32)
-        skey, spay = jax.lax.sort_key_val(keyd, payload)
-        perm = (skey & jnp.uint32((1 << 21) - 1)).astype(jnp.int32)
-        spay = jnp.pad(spay, (0, npad)).reshape(g, 128)
-        lo_all_s = (spay >> 11).astype(jnp.int32)
-        ret_s = (spay & jnp.uint32((1 << 11) - 1)).astype(jnp.int32)
-        st8_s = lo_all_s // 8
-        lo_s = lo_all_s - st8_s * 8
-        hi_s = lo_s + ret_s
-        cid = jnp.pad(perm, (0, npad)).reshape(g, 128)
-        depth_s = (jnp.max(hi_s, axis=1, keepdims=True) + 7) // 8  # (g, 1)
-        assert pairs.pdata.shape[1] == 10, "pdata must be 10-wide"
-        edat8 = pairs.pdata[sval].reshape(e8, 80)
-        widx = jnp.minimum(
-            st8_s[:, :, None] + jnp.arange(s_rows, dtype=jnp.int32), e8 - 1
-        )
-        # keep W-rows 80-wide end to end: splitting (8, 10) here made the
-        # gather output's minor dim 10 -> lane-padded 12.8x intermediates
-        # (206 MB traced at 116k); the kernel splits (entry, field) by
-        # static sublane index instead
-        vdatw = edat8[widx.reshape(-1)].reshape(g, 128, s_rows, 80)
-        vdat_t = vdatw.transpose(2, 3, 0, 1).reshape(s_rows, 80, g * 128)
-        return (
-            vdat_t, lo_s, hi_s, depth_s,
-            bin_dropped, entry_dropped, cell_too_small, geom, cid, perm,
-        )
-
-    # kernel-layout padding: cells row-major, lanes padded to wgroups*128;
-    # padded lanes get hi == lo == 0 (no slot ever valid -> background)
-    wgroups = -(-wc_img // 128)
-    wcp = wgroups * 128
-    cpad = wcp - wc_img
-    lo_p = jnp.pad(lo_off, ((0, 0), (0, cpad)))
-    hi_p = jnp.pad(need, ((0, 0), (0, cpad)))
-    depth = jnp.max(hi_p.reshape(hc_img, wgroups, 128), axis=2)
-    depth = (depth + 7) // 8  # W-rows the kernel loops, per 128-cell group
-
-    # entry rows in sorted order: ONE 10-wide row gather (E rows; the free
-    # reshape packs 8 entries x 10 fields per 80-lane W-row — row gathers
-    # are row-count-bound, so the narrower rows cost the same gather time
-    # and 40% fewer relayout/DMA bytes than a 128-lane pad), then one W-row
-    # gather (cells * s_rows rows).  Lane padding rides the INDEX array
-    # (tiny) — padding the gathered data itself traced 1.3 ms of relayout.
-    assert pairs.pdata.shape[1] == 10, "pdata must be 10-wide (see PairData)"
-    edat8 = pairs.pdata[sval].reshape(e8, 80)  # 8 entries x 10 fields/row
-    widx = jnp.minimum(
-        start8[:, :, None] + jnp.arange(s_rows, dtype=jnp.int32), e8 - 1
-    )
-    widx = jnp.pad(widx, ((0, 0), (0, cpad), (0, 0)))
-    # W-rows stay 80-wide (see the sort_cells branch): the kernel splits
-    # (entry, field) by static sublane index
-    vdatw = edat8[widx.reshape(-1)].reshape(hc_img, wcp, s_rows, 80)
-    vdat_t = vdatw.transpose(2, 3, 0, 1).reshape(s_rows, 80, hc_img * wcp)
-    return (
-        vdat_t, lo_p, hi_p, depth,
-        bin_dropped, entry_dropped, cell_too_small, geom, None, None,
-    )
-
-
 def _cell_pixel_coords(width, height, cam, params: RenderParams):
     """Pixel world coords grouped by view cell: two (n_cells_padded, k*k)
     arrays, built by index arithmetic (no gathers)."""
@@ -1168,11 +930,8 @@ def _cell_pixel_coords(width, height, cam, params: RenderParams):
 def _occupancy_cells(px, py, t_e, vdat, vok, dt, rho):
     """Dense per-cell occupancy: pixels (C, k2) vs candidates (C, cap, 8).
 
-    Returns (occupied (C, k2), winner (C, k2, cap) one-hot mask).  The winner
-    is expressed as a mask rather than an argmin index because on TPU
-    take_along_axis lowers to a serialized scalar gather (~0.36 ms per 41k
-    elements, measured); selecting fields by masked REDUCTION stays on the
-    VPU."""
+    Returns (occupied (C, k2), winner (C, k2, cap) one-hot mask); fields of
+    the winner are selected by masked reduction (_field_at)."""
     inside, dist2 = _occupancy_xy(
         px[:, :, None], py[:, :, None], t_e[:, :, None],
         vdat[:, None, :, _F_AX], vdat[:, None, :, _F_AY],
@@ -1184,13 +943,13 @@ def _occupancy_cells(px, py, t_e, vdat, vok, dt, rho):
     min_d = jnp.min(dist2, axis=2, keepdims=True)
     occupied = min_d[:, :, 0] < _BIG
     tied = dist2 == min_d
-    # first-of-ties so exactly one candidate wins (cumsum along cap is VPU)
+    # first-of-ties so exactly one candidate wins
     winner = tied & (jnp.cumsum(tied.astype(jnp.int32), axis=2) == 1)
     return occupied, winner
 
 
 def _field_at(vdat, winner, field):
-    """Per-pixel winning candidate's field via masked reduction (no gathers)."""
+    """Per-pixel winning candidate's field via masked reduction."""
     f = vdat[:, None, :, field]  # (C, 1, cap)
     return jnp.sum(jnp.where(winner, f, 0.0), axis=2)
 
@@ -1249,7 +1008,7 @@ def _assemble_image(crgb, width, height, params: RenderParams, planar: bool,
 # ---------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnames=("width", "height", "params"))
+@partial(jax.jit, static_argnames=("width", "height", "params", "pixel_chunk"))
 def render_retarded_brute(
     buf: WorldlineBuffer,
     obj_index: jax.Array,  # (N,) i32 object id per particle
@@ -1258,9 +1017,12 @@ def render_retarded_brute(
     width: int,
     height: int,
     params: RenderParams,
+    pixel_chunk: int = 0,
 ) -> jax.Array:
     """Reference renderer: every pixel tests every (slot, particle) segment.
-    Defines correct output for the accelerated path (SURVEY.md §4)."""
+    Defines correct output for the accelerated path (SURVEY.md §4).
+    `pixel_chunk` > 0 evaluates that many pixels at a time (the same
+    result; memory bounded by chunk * T * N instead of pixels * T * N)."""
     dt, rho = params.dt, params.rho
     qax, qay, qbx, qby, ta, seg_valid = _segment_data(buf, dt)
     t_now = buf.times[buf.cursor]
@@ -1280,10 +1042,6 @@ def render_retarded_brute(
         )
         px = cam.pos[0] + ox
         py = cam.pos[1] + oy
-    relx, rely = px - cam.pos[0], py - cam.pos[1]
-    r = jnp.sqrt(relx * relx + rely * rely)
-    inv_r = 1.0 / jnp.maximum(r, 1e-12)
-    dhx, dhy = relx * inv_r, rely * inv_r
 
     fax, fay = qax.reshape(-1), qay.reshape(-1)
     fbx, fby = qbx.reshape(-1), qby.reshape(-1)
@@ -1293,43 +1051,58 @@ def render_retarded_brute(
     fvx = buf.vel_x[:t_cap].reshape(-1)
     fvy = buf.vel_y[:t_cap].reshape(-1)
 
-    t_e = t_now - r if params.retarded else jnp.broadcast_to(t_now, r.shape)
-    inside, dist2 = _occupancy_xy(
-        px[:, None], py[:, None], t_e[:, None],
-        fax[None], fay[None], fbx[None], fby[None], fta[None], dt, rho,
-    )
-    inside = inside & valid_f[None, :]
-    dist2 = jnp.where(inside, dist2, _BIG)
-    best = jnp.argmin(dist2, axis=1)
-    occupied = jnp.take_along_axis(inside, best[:, None], axis=1)[:, 0]
-
-    hit, s_hit = _ray_hit_xy(
-        cam.pos[0], cam.pos[1], dhx[:, None], dhy[:, None],
-        fax[None], fay[None], fbx[None], fby[None], fta[None],
-        t_now, dt, rho,
-    )
-    s_hit = jnp.where(hit & valid_f[None, :], s_hit, _BIG)
-    s_first = jnp.min(s_hit, axis=1)
-
-    obj = fobj[best]
-    cr = objects.base_color[:, 0][obj]
-    cg = objects.base_color[:, 1][obj]
-    cb = objects.base_color[:, 2][obj]
-    nx, ny = -dhx, -dhy
-    d = doppler_factor_xy(fvx[best], fvy[best], nx, ny) * camera_doppler_factor_xy(
-        cam.vel[0], cam.vel[1], nx, ny
-    )
-    sr, sg, sb = shade_channels(cr, cg, cb, d, params)
-    if params.opaque and params.retarded:
-        blocked = s_first < (r - 2.0 * params.rho)
-        comp = lambda s: jnp.where(
-            occupied,
-            jnp.where(blocked, s * params.absorbed_dim, s),
-            jnp.where(blocked, jnp.float32(params.shadow), 1.0),
+    def shade(px, py):
+        relx, rely = px - cam.pos[0], py - cam.pos[1]
+        r = jnp.sqrt(relx * relx + rely * rely)
+        inv_r = 1.0 / jnp.maximum(r, 1e-12)
+        dhx, dhy = relx * inv_r, rely * inv_r
+        t_e = t_now - r if params.retarded else jnp.broadcast_to(t_now, r.shape)
+        inside, dist2 = _occupancy_xy(
+            px[:, None], py[:, None], t_e[:, None],
+            fax[None], fay[None], fbx[None], fby[None], fta[None], dt, rho,
         )
+        inside = inside & valid_f[None, :]
+        dist2 = jnp.where(inside, dist2, _BIG)
+        best = jnp.argmin(dist2, axis=1)
+        occupied = jnp.take_along_axis(inside, best[:, None], axis=1)[:, 0]
+
+        hit, s_hit = _ray_hit_xy(
+            cam.pos[0], cam.pos[1], dhx[:, None], dhy[:, None],
+            fax[None], fay[None], fbx[None], fby[None], fta[None],
+            t_now, dt, rho,
+        )
+        s_hit = jnp.where(hit & valid_f[None, :], s_hit, _BIG)
+        s_first = jnp.min(s_hit, axis=1)
+
+        obj = fobj[best]
+        cr = objects.base_color[:, 0][obj]
+        cg = objects.base_color[:, 1][obj]
+        cb = objects.base_color[:, 2][obj]
+        nx, ny = -dhx, -dhy
+        d = doppler_factor_xy(fvx[best], fvy[best], nx, ny) * (
+            camera_doppler_factor_xy(cam.vel[0], cam.vel[1], nx, ny)
+        )
+        sr, sg, sb = shade_channels(cr, cg, cb, d, params)
+        if params.opaque and params.retarded:
+            blocked = s_first < (r - 2.0 * params.rho)
+            comp = lambda s: jnp.where(
+                occupied,
+                jnp.where(blocked, s * params.absorbed_dim, s),
+                jnp.where(blocked, jnp.float32(params.shadow), 1.0),
+            )
+        else:
+            comp = lambda s: jnp.where(occupied, s, 1.0)
+        return jnp.stack([comp(sr), comp(sg), comp(sb)], axis=-1)
+
+    n_px = width * height
+    if 0 < pixel_chunk < n_px:
+        n_chunks = -(-n_px // pixel_chunk)
+        pad = n_chunks * pixel_chunk - n_px
+        chunks = (jnp.pad(px, (0, pad)).reshape(n_chunks, pixel_chunk),
+                  jnp.pad(py, (0, pad)).reshape(n_chunks, pixel_chunk))
+        img = jax.lax.map(lambda a: shade(*a), chunks).reshape(-1, 3)[:n_px]
     else:
-        comp = lambda s: jnp.where(occupied, s, 1.0)
-    img = jnp.stack([comp(sr), comp(sg), comp(sb)], axis=-1)
+        img = shade(px, py)
     return img.reshape(height, width, 3)
 
 
@@ -1400,9 +1173,8 @@ def _retina(pairs: PairData, cam, t_now, params: RenderParams):
         s_hit = jnp.where(hit & ok[None, :], s_hit, _BIG)
         return jnp.minimum(s_min, jnp.min(s_hit, axis=1)), None
 
-    # NOTE: static trip count on purpose.  A traced-bound fori_loop here
-    # compiles to a while loop that destroys the fused pipeline (measured
-    # ~40x slower at full history); the scan over the static budget is fast.
+    # static trip count: a scan over the static budget, not a loop bounded
+    # by the traced pair count
     s_first, _ = jax.lax.scan(
         ray_chunk_step, jnp.full((n_rays,), _BIG),
         (col(_F_AX), col(_F_AY), col(_F_BX), col(_F_BY), col(_F_TA), cok),
@@ -1561,7 +1333,7 @@ def _occlusion_ds(params: RenderParams) -> int:
 def _sfirst_lookup(s_first, gxq, gyq, x0, y0, pixel_size, cam, n_rays, off,
                    camera_frame: bool = False):
     """Retina value at the pixel/quad-center angles given by integer pixel
-    coords (gxq, gyq) + half-quad offset `off` (row gather — the fast class).
+    coords (gxq, gyq) + half-quad offset `off`.
 
     `camera_frame`: pixel coords are boosted-view coords; the retina bins by
     GROUND bearing, so unwarp to the ground cone offset first (ops/boost.py).
@@ -1579,104 +1351,65 @@ def _sfirst_lookup(s_first, gxq, gyq, x0, y0, pixel_size, cam, n_rays, off,
         jnp.floor((phi + _PI) / (2 * _PI) * n_rays).astype(jnp.int32),
         0, n_rays - 1,
     )
-    rows = jnp.broadcast_to(s_first[:, None], (n_rays, 8))
-    return rows[ri][..., 0]
+    return s_first[ri]
 
 
-def _resolve_backend(params: RenderParams):
-    """Map params.backend to (path, interpret): Pallas kernel on TPU-class
-    backends, XLA block map on CPU (Pallas interpret mode is test-only).
-    Spectral (blackbody) shading is mirrored in the kernel since round 5
-    (render_pallas planck branch), so it no longer forces the XLA path."""
-    b = params.backend
-    if b == "auto":
-        return ("pallas" if jax.default_backend() != "cpu" else "xla"), False
-    if b == "pallas_interpret":
-        return "pallas", True
-    return b, False
-
-
-def _pixel_pass_pallas_path(
-    pairs: PairData, rpairs: PairData, cam, t_now, width: int, height: int,
-    params: RenderParams, use_rays: bool, planar: bool, interpret: bool,
-):
-    """Fused Pallas pixel pass: sorted-window splat (scatter-free, see
-    _splat_windows) -> one kernel for occupancy/winner/shading/occlusion/
-    composition.  Returns (image, bin_dropped, entry_dropped,
-    cell_too_small)."""
-    from . import render_pallas as rp
-
+def _retina_plane(s_first, n_rows: int, width: int, height: int, cam,
+                  params: RenderParams):
+    """Retina first-hit distance for every pixel of the first `n_rows` view
+    cells, as an (n_rows, k*k) plane in cell-major pixel order (one lookup
+    per occlusion_downsample quad, broadcast to its pixels)."""
     k = params.cell_px
-    k2 = k * k
-    # occupancy-sorted cell groups on single-chip paths (see _splat_windows);
-    # the mesh path keeps row-major cells (its shard_map splits cell ROWS)
-    sort_cells = params.shard is None
-    (
-        vdat_t, wlo, whi, depth,
-        bin_dropped, entry_dropped, cell_too_small, geom, cid, perm,
-    ) = _splat_windows(pairs, cam, width, height, params,
-                       sort_cells=sort_cells)
-    wc_img, hc_img, pixel_size, x0, y0 = geom
-    if sort_cells:
-        hc_k, wgroups = wlo.shape[0], 1  # (G, 128) sorted layout
-    else:
-        hc_k, wgroups = hc_img, -(-wc_img // 128)
-    wcp = wgroups * 128
-    cxm, cym = cam.pos[0], cam.pos[1]
+    ds = _occlusion_ds(params)
+    kq = k // ds
+    wc, _hc, ps_, x0_, y0_ = _view_grid(width, height, cam, k)
+    ci = jax.lax.broadcasted_iota(jnp.int32, (n_rows, kq * kq), 0)
+    pj = jax.lax.broadcasted_iota(jnp.int32, (n_rows, kq * kq), 1)
+    gx = (ci % wc) * k + (pj % kq) * ds
+    gy = (ci // wc) * k + (pj // kq) * ds
+    sfq = _sfirst_lookup(
+        s_first, gx, gy, x0_, y0_, ps_, cam, params.num_rays, (ds - 1) * 0.5,
+        camera_frame=params.camera_frame,
+    )
+    if ds > 1:
+        sfq = sfq.reshape(n_rows, kq, 1, kq, 1)
+        sfq = jnp.broadcast_to(
+            sfq, (n_rows, kq, ds, kq, ds)
+        ).reshape(n_rows, k * k)
+    return sfq
 
+
+def _pixel_pass_triton_path(
+    pairs: PairData, rpairs: PairData, cam, t_now, width: int, height: int,
+    params: RenderParams, use_rays: bool, planar: bool,
+):
+    """Fused pixel pass (ops/pixel_triton.py) over per-cell ranges of the
+    sorted splat entries.  Returns (image, bin_dropped, entry_dropped,
+    cell_too_small)."""
+    from . import pixel_triton
+
+    lo, cnt, edat, bin_dropped, entry_dropped, cell_too_small, geom = (
+        _splat_ranges(pairs, cam, width, height, params)
+    )
+    wc_img, hc_img, pixel_size, x0, y0 = geom
+    k = params.cell_px
+    n_cells = wc_img * hc_img
+    npx = pixel_triton.pixel_block(k)
     if use_rays:
         s_first = _retina(rpairs, cam, t_now, params)
-        n_rays = params.num_rays
-        ds = _occlusion_ds(params)
-        kq = k // ds
-        k2q = kq * kq
-        # retina lookup at quad centers, in (hc_k, k2q, wcp) kernel order;
-        # sorted layouts derive each lane's cell coords from cid
-        p = jax.lax.broadcasted_iota(jnp.int32, (hc_k, k2q, wcp), 1)
-        if sort_cells:
-            cidf = cid.reshape(hc_k, 1, wcp)
-            col = cidf % wc_img
-            row = cidf // wc_img
-        else:
-            col = jax.lax.broadcasted_iota(jnp.int32, (hc_k, k2q, wcp), 2)
-            row = jax.lax.broadcasted_iota(jnp.int32, (hc_k, k2q, wcp), 0)
-        gx = col * k + (p % kq) * ds
-        gy = row * k + (p // kq) * ds
-        sfq = _sfirst_lookup(
-            s_first, gx, gy, x0, y0, pixel_size, cam, n_rays, (ds - 1) * 0.5,
-            camera_frame=params.camera_frame,
-        )
-        if ds > 1:
-            sfq = sfq.reshape(hc_k, kq, 1, kq, 1, wcp)
-            sfq = jnp.broadcast_to(
-                sfq, (hc_k, kq, ds, kq, ds, wcp)
-            ).reshape(hc_k, k2, wcp)
-        sfpx = sfq
+        sfpx = _retina_plane(s_first, n_cells, width, height, cam, params)
+        sfpx = jnp.pad(sfpx, ((0, 0), (0, npx - k * k)))
     else:
-        sfpx = jnp.zeros((hc_k, k2, wcp), jnp.float32)
-
+        sfpx = jnp.zeros((n_cells, npx), jnp.float32)
     scal = jnp.stack(
-        [t_now, cxm, cym, cam.vel[0], cam.vel[1], x0, y0, pixel_size]
+        [t_now, cam.pos[0], cam.pos[1], cam.vel[0], cam.vel[1], x0, y0,
+         pixel_size]
     ).astype(jnp.float32)
-    out = rp.pixel_pass_pallas(
-        vdat_t, wlo, whi, depth, sfpx, scal,
-        k=k, hc=hc_k, wgroups=wgroups,
-        use_rays=use_rays, retarded=params.retarded,
-        doppler=params.doppler, beaming=params.beaming,
-        spectral=params.spectral, spectral_temp=params.spectral_temp,
-        rho=params.rho, dt=params.dt,
-        doppler_strength=params.doppler_strength, ambient=params.ambient,
-        absorbed_dim=params.absorbed_dim, shadow=params.shadow,
-        camera_frame=params.camera_frame,
-        interpret=interpret, shard=params.shard,
-        cell_ids=cid, wc_img=wc_img,
+    img = pixel_triton.pixel_pass(
+        scal, lo, cnt, edat, sfpx, k=k, wc_img=wc_img, width=width,
+        height=height, planar=planar, use_rays=use_rays, params=params,
+        interpret=params.triton_interpret,
     )
-    if sort_cells:
-        img = rp.assemble_sorted(
-            out, perm, width, height, k, wc_img, hc_img, planar
-        )
-    else:
-        img = rp.assemble_cell_major(out, width, height, k, wc_img, planar)
     return img, bin_dropped, entry_dropped, cell_too_small
 
 
@@ -1718,8 +1451,7 @@ def _render_retarded_impl(
         ):
             # (when the raw layout already fits the budget, fall through to
             # the plain path: the two-segment sort+gather over (N*band) rows
-            # would COST more than the retina march it trims — measured as a
-            # small-config regression in the round-3 config table)
+            # would cost more than the retina march it trims)
             # boundary pairs compacted to the buffer FRONT; the occlusion
             # retina is then a static prefix slice of the same buffer
             # pdata rows per particle: `segments` when rank compaction is on
@@ -1748,11 +1480,12 @@ def _render_retarded_impl(
         rpairs = pairs
         band_truncated = jnp.int32(0)
 
-    backend, interpret = _resolve_backend(params)
-    if backend == "pallas":
-        img, bin_dropped, entry_dropped, cell_too_small = _pixel_pass_pallas_path(
-            pairs, rpairs, cam, t_now, width, height, params, use_rays,
-            planar, interpret,
+    if paths.pixel_path(params.backend) == "triton":
+        img, bin_dropped, entry_dropped, cell_too_small = (
+            _pixel_pass_triton_path(
+                pairs, rpairs, cam, t_now, width, height, params, use_rays,
+                planar,
+            )
         )
         diag = RenderDiag(
             pairs_used=pairs.n_pairs,
@@ -1770,7 +1503,6 @@ def _render_retarded_impl(
     )
     wc_img, hc_img, _ps, _x0, _y0 = geom
 
-    n_rays = params.num_rays
     pxs, pys = _cell_pixel_coords(width, height, cam, params)
     cb = params.cells_per_block
     n_blocks = pxs.shape[0] // cb
@@ -1786,30 +1518,9 @@ def _render_retarded_impl(
 
     if use_rays:
         s_first = _retina(rpairs, cam, t_now, params)
-        # ONE global retina lookup, hoisted out of the block map (the
-        # round-1 per-block gather re-paid a relayout copy per block:
-        # ~3.7 ms/frame traced).  Row gather is the fast class; a scalar
-        # gather from the (num_rays,) table serialized at ~14 ms (traced).
-        k = params.cell_px
-        ds = _occlusion_ds(params)
-        kq = k // ds
-        k2q = kq * kq
-        n_cells_pad = pxs.shape[0]
-        _wc, _hc, ps_, x0_, y0_ = _view_grid(width, height, cam, k)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (n_cells_pad, k2q), 0)
-        pj = jax.lax.broadcasted_iota(jnp.int32, (n_cells_pad, k2q), 1)
-        gx = (ci % _wc) * k + (pj % kq) * ds
-        gy = (ci // _wc) * k + (pj // kq) * ds
-        sfq = _sfirst_lookup(
-            s_first, gx, gy, x0_, y0_, ps_, cam, n_rays, (ds - 1) * 0.5,
-            camera_frame=params.camera_frame,
+        s_first_px_all = _retina_plane(
+            s_first, pxs.shape[0], width, height, cam, params
         )
-        if ds > 1:
-            sfq = sfq.reshape(n_cells_pad, kq, 1, kq, 1)
-            sfq = jnp.broadcast_to(
-                sfq, (n_cells_pad, kq, ds, kq, ds)
-            ).reshape(n_cells_pad, k * k)
-        s_first_px_all = sfq
     else:
         s_first_px_all = jnp.full_like(pxs, _BIG)
 

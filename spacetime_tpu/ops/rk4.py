@@ -48,9 +48,6 @@ class StepAux(NamedTuple):
 
     grid_overflow: jax.Array  # candidates dropped by cell-capacity cap
     bonds_broken: jax.Array  # bonds removed this step (directed count)
-    # elements clipped off Pallas sorted windows (wlen > wmax) — nonzero
-    # means collision forces were silently lost in dense overlap regions
-    window_truncated: jax.Array
 
 
 def _advance(pos0, vel0, forces, rest_mass, h_scale, params: PhysicsParams):
@@ -207,16 +204,8 @@ def physics_step(
     grid_dim: int,
     cell_capacity: int,
     integrator: str = "rk4",
-    use_pallas: bool = False,
     spring_offsets=None,
-    pallas_interpret: bool = False,
-    wmax: int = 4096,
-    tile: int = 256,
     materials=None,  # ops.materials.ParticleMaterials (optional pytree)
-    split_windows: bool = False,  # per-grid-row kernel spans (dense rows)
-    shard=None,  # (Mesh, axis): shard_map the Pallas collision kernel
-    bin_resolution=None,  # Pallas-path binning res (None = grid_resolution)
-    chunk_sub: int = 8,  # sublane rows per window DMA (forces_pallas)
 ) -> tuple[Particles, StepAux]:
     """Full per-frame physics: cell-table rebuild + integrate.
 
@@ -233,95 +222,19 @@ def physics_step(
     if particles.rest_len is not None:
         rest_lengths = particles.rest_len
 
-    if use_pallas:
-        # fused Pallas collision kernel over sorted cell windows (TPU only);
-        # binning order fixed per step, positions re-fed per stage — the
-        # same grid-reuse dataflow as the reference (softbody/mod.rs:557-596).
-        # The dense halo table is NOT built here: the kernel needs only the
-        # cell ids (its windows are exact, so the XLA path's per-cell
-        # capacity — and its overflow diagnostic — do not apply).
-        from . import forces_pallas as fp
+    table = grid_ops.build_cell_table(
+        pos0, particles.active, params.grid_resolution, grid_dim,
+        cell_capacity,
+    )
+    grid_overflow = table.overflow
+    ncell = grid_ops.neighbor_cells(table, grid_dim)  # (N, 9)
+    idx_nbr = table.idx_rows[ncell]  # (N, 9, cap) — fixed per step
 
-        # binning-only resolution override: any value >= collision_distance
-        # keeps the sorted windows exact supersets of the 3x3-cell scan
-        # (finer rows -> fewer candidates per window); the kernel grid dim
-        # rescales so the live extent is unchanged
-        bres = bin_resolution if bin_resolution else params.grid_resolution
-        if bres < params.collision_distance - 1e-9:
-            raise ValueError(
-                "bin_resolution below collision_distance breaks window coverage"
-            )
-        bdim = max(1, int(round(grid_dim * params.grid_resolution / bres)))
-        cell, _origin = grid_ops.cell_ids(
-            pos0, particles.active, bres, bdim
+    def F(pos):
+        return forces_ops.total_forces_cells(
+            pos, nbr, table, ncell, idx_nbr, rest_lengths, params,
+            materials=materials, vel0=vel0,
         )
-        grid_overflow = jnp.int32(0)
-        order = fp.build_sorted_order(
-            cell, particles.active, (bdim + 2) ** 2, bdim + 2,
-            tile=tile, wmax=wmax, split_windows=split_windows,
-        )
-        # with shifted-slice offsets available, bonded-pair exclusion moves
-        # OUT of the kernel (include in-kernel, subtract outside): the
-        # 8-compare inner loop was ~40% of kernel ops (softbodyrk4.glsl's
-        # exclusion semantics preserved exactly)
-        exclude_in_kernel = spring_offsets is None
-        static = fp.prepare_static(order, nbr, tile=tile, wmax=wmax,
-                                   with_bonds=exclude_in_kernel)
-        window_truncated = order.window_truncated
-
-        def F(pos):
-            coll = fp.collision_forces_pallas(
-                pos, nbr, order, static, tile=tile, wmax=wmax,
-                collision_distance=params.collision_distance,
-                repulsion=params.collision_repulsion_coefficient,
-                exclude_bonds=exclude_in_kernel,
-                interpret=pallas_interpret,
-                shard=shard,
-                chunk_sub=chunk_sub,
-            )
-            k_pp = materials.k_scale if materials is not None else None
-            if spring_offsets is not None:
-                sfx, sfy = forces_ops.spring_forces_shifted(
-                    pos[:, 0], pos[:, 1], nbr, spring_offsets, rest_lengths,
-                    params.k, k_pp=k_pp,
-                )
-                bfx, bfy = forces_ops.bonded_repulsion_shifted(
-                    pos[:, 0], pos[:, 1], nbr, spring_offsets,
-                    params.collision_distance,
-                    params.collision_repulsion_coefficient,
-                )
-                sfx, sfy = sfx - bfx, sfy - bfy
-                if materials is not None and materials.damping is not None:
-                    dfx, dfy = forces_ops.bond_damping_shifted(
-                        pos[:, 0], pos[:, 1], vel0[:, 0], vel0[:, 1], nbr,
-                        spring_offsets, materials.damping,
-                    )
-                    sfx, sfy = sfx + dfx, sfy + dfy
-            else:
-                c_pp = materials.damping if materials is not None else None
-                sfx, sfy = forces_ops.spring_forces_rows(
-                    pos[:, 0], pos[:, 1], nbr, rest_lengths, params.k,
-                    k_pp=k_pp, c_pp=c_pp,
-                    vx=vel0[:, 0] if c_pp is not None else None,
-                    vy=vel0[:, 1] if c_pp is not None else None,
-                )
-            return coll + jnp.stack([sfx, sfy], axis=-1)
-
-    else:
-        window_truncated = jnp.int32(0)
-        table = grid_ops.build_cell_table(
-            pos0, particles.active, params.grid_resolution, grid_dim,
-            cell_capacity,
-        )
-        grid_overflow = table.overflow
-        ncell = grid_ops.neighbor_cells(table, grid_dim)  # (N, 9)
-        idx_nbr = table.idx_rows[ncell]  # (N, 9, cap) — fixed per step
-
-        def F(pos):
-            return forces_ops.total_forces_cells(
-                pos, nbr, table, ncell, idx_nbr, rest_lengths, params,
-                materials=materials, vel0=vel0,
-            )
 
     if integrator == "euler":
         f = F(pos0)
@@ -337,8 +250,8 @@ def physics_step(
             active=particles.active,
             rest_len=particles.rest_len,
         )
-        return new, StepAux(grid_overflow=grid_overflow, bonds_broken=jnp.int32(0),
-                            window_truncated=window_truncated)
+        return new, StepAux(grid_overflow=grid_overflow,
+                            bonds_broken=jnp.int32(0))
     if integrator != "rk4":
         raise ValueError(f"unknown integrator: {integrator}")
 
@@ -410,5 +323,4 @@ def physics_step(
         active=particles.active,
         rest_len=new_rest,
     )
-    return new, StepAux(grid_overflow=grid_overflow, bonds_broken=n_broken,
-                        window_truncated=window_truncated)
+    return new, StepAux(grid_overflow=grid_overflow, bonds_broken=n_broken)

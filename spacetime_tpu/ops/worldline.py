@@ -9,7 +9,7 @@ a hardware raytracer (reference: src/twoplusone/worldline/mod.rs:37-44,
 raytrace.glsl) but never writes output
 (worldline_updatesoftbodies.glsl:37-81).
 
-TPU-native redesign: no mesh at all.  Each stored tick keeps every particle's
+Redesign: no mesh at all.  Each stored tick keeps every particle's
 (pos, vel); between consecutive ticks a particle's worldline is a linear
 segment in (x, y, t), and a softbody is rendered as the union of
 radius-``rho`` capsules swept along those segments.  This is *exact* for the
@@ -18,14 +18,12 @@ author got stuck on (OLD_worldline_updatesoftbodies.glsl:119-123 "god how am
 I supposed to make this work"), and preserves per-particle velocity for
 Doppler shading at the retarded event.
 
-Layout (performance-critical, all measured on v5e):
+Layout:
   * TIME-major planes ``(2T, N)``, one per scalar component — no
-    (..., 2) vectors (TPU pads 2-wide trailing dims to 128 lanes, 64x HBM
-    inflation).  Time-major puts particles on the lane axis, so the
-    per-tick push writes two CONTIGUOUS rows (a particle-major layout's
-    column write rewrote every (8, 128) tile in the column stripe:
-    2.3 ms/frame traced at reference scale vs ~0.1 ms for rows) and the
-    renderer's dense cone sweep reads a contiguous row block.
+    (..., 2) vectors.  Time-major makes the per-tick push write two
+    CONTIGUOUS rows (a particle-major layout would write a strided column
+    through the whole ring) and lets the renderer's dense cone sweep read
+    a contiguous row block.
   * The time axis is MIRRORED (slot s also written at s + T), so any
     backward-window read of up to T ticks is contiguous — no modular
     wraparound in the hot path.

@@ -9,14 +9,13 @@ orthographic view of every stored worldline sample as a point in
 (x, y, t)-space, azimuth/elevation free camera, nearest-sample-wins hidden
 surface via a depth-packed scatter-min.
 
-TPU-native shape (see PERF.md design rules):
+Shape:
 - The history is consumed as dense (A, N) component planes sliced straight
   from the mirrored (2T, N) ring — no per-sample gathers anywhere.
 - Hidden-surface removal is ONE `at[].min` scatter of an int32 key packing
   (quantized depth << 15 | r5 << 10 | g5 << 5 | b5): the winner carries its
   own color, so decoding the image is pure elementwise shift/mask — no
-  per-pixel table lookups (a (H*W,) scalar gather would serialize at ~9
-  ns/element, PERF.md "measured primitive costs").
+  per-pixel table lookups.
 - Age shading (samples fade toward the white background with lookback) gives
   the depth cue the reference's planned mesh normals would have.
 """

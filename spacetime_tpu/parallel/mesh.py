@@ -10,9 +10,9 @@ from jax.sharding import Mesh
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "d") -> Mesh:
-    """1D mesh over the first n devices (particles/pixels/history all shard
-    over one axis at reference scale; ICI topology refinements can come with
-    multi-axis needs)."""
+    """1D mesh over the first n devices (particles and pixels shard over one
+    axis; the cards of one host are joined all to all, so a 1-D mesh loses
+    nothing to topology)."""
     devs = jax.devices()
     if n_devices is None:
         n_devices = len(devs)

@@ -1,15 +1,14 @@
 """Multi-process (multi-host) execution: the DCN axis of the scaling story.
 
-One JAX process per host (or per test subprocess), all joined into a single
-GSPMD program by `jax.distributed` — the same single-controller-per-process
-model TPU pods use:
+One JAX process per host, per card, or per test subprocess, all joined into
+a single GSPMD program by `jax.distributed` (one controller per process):
 
   * every process calls `initialize()` (coordinator TCP rendezvous), after
     which `jax.devices()` is the GLOBAL device list across processes;
   * the existing mesh/sharding layer (`parallel.mesh`, `parallel.sharding`)
-    is reused unchanged over the global mesh — shardings that ride ICI on
-    one host ride DCN between hosts, inserted by XLA from the same
-    PartitionSpecs;
+    is reused unchanged over the global mesh — XLA inserts the same
+    collectives from the same PartitionSpecs whether they cross cards of
+    one host or hosts;
   * host state (scene build is deterministic, so every process holds the
     full arrays) is distributed with `host_array` — each process feeds only
     the shards it addresses; results come back with `allgather` for
@@ -26,7 +25,7 @@ cross-process collectives).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import jax
 import numpy as np
@@ -38,13 +37,18 @@ def initialize(
     coordinator: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    local_device_ids: Optional[Sequence[int]] = None,
 ) -> None:
     """Join this process into the global JAX runtime.
 
-    With no arguments, reads the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) — the launcher contract of
-    tools/launch_multihost.py — falling back to single-process (no-op) when
-    they are absent.  Must run BEFORE any other JAX call in the process.
+    With no arguments, reads the launcher contract of
+    tools/launch_multihost.py (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID, and SPACETIME_LOCAL_DEVICES — a comma list of the local
+    card indices this process may open), falling back to single-process
+    (no-op) when they are absent.  Several processes on one GPU host must
+    each open only their own card: a JAX process reserves most of a card's
+    memory when it first uses it, so a second process on the same card
+    fails.  Must run BEFORE any other JAX call in the process.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coordinator is None:
@@ -53,16 +57,18 @@ def initialize(
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
     if process_id is None:
         process_id = int(os.environ["JAX_PROCESS_ID"])
+    if local_device_ids is None and os.environ.get("SPACETIME_LOCAL_DEVICES"):
+        local_device_ids = [
+            int(i) for i in os.environ["SPACETIME_LOCAL_DEVICES"].split(",")
+        ]
     # CPU meshes need a cross-process collectives transport; gloo is the
-    # one compiled into jax's CPU client (TPU meshes ignore this knob)
-    try:
-        jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # knob renamed/absent: let jax pick its default
-        pass
+    # one compiled into jax's CPU client (GPU meshes use NCCL)
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 

@@ -58,8 +58,7 @@ def mask_to_softbody(
     identical, but neighbor slot s of particle i is then exactly i + d_s for
     a per-object constant d_s in {±1, ±W, ±W±1} — which lets the physics
     read bonded positions by static shifted slices instead of row gathers
-    (see ops/forces.spring_forces_shifted; the gathers' 16x lane padding
-    traced at ~12 ms/step at reference demo scale).  Costs ~1.27x capacity
+    (see ops/forces.spring_forces_shifted).  Costs ~1.27x capacity
     for a disc.
     """
     mask = np.asarray(mask, bool)

@@ -5,9 +5,9 @@ reference: src/twoplusone/common.glsl:1-13 and src/twoplusone/softbody/mod.rs:64
 plus a per-object uniform buffer holding each object's offset into the
 particle buffer (`Object`, reference: src/twoplusone/common.glsl:15-22).
 
-TPU-native layout differences (deliberate):
-  * Structure-of-arrays — `pos (N,2)`, `vel (N,2)`, ... — so every field maps
-    onto (8,128)-tiled f32 vregs instead of strided 64-byte records.
+Layout differences (deliberate):
+  * Structure-of-arrays — `pos (N,2)`, `vel (N,2)`, ... — so every field is
+    a dense array instead of strided 64-byte records.
   * Neighbor indices are stored as *global* particle indices with -1
     sentinels, folding the reference's `object.offset` indirection
     (reference: softbodyrk4.glsl:123, common.glsl:17-18) into the table at

@@ -110,7 +110,7 @@ def config_single_blob() -> EngineConfig:
         cam_pos=(0.65, 0.5),
         # small image -> few view cells -> dense bins: pre-size capacity so
         # the diagnostics adaptation doesn't need a startup recompile
-        # (drop-free at 256 for this scene; adds ~2 ms vs a dropping 64)
+        # (drop-free at 256 for this scene)
         render=RenderParams(bin_capacity=256),
     )
 
@@ -146,19 +146,54 @@ def config_flagship_1080p() -> EngineConfig:
                 _blob(5000, (1.05, 0.55), (-0.45, -0.1), RED),
             )
         ),
-        # bin_capacity 64: measured drop-free at the ladder's cell_px=16
-        # (bench.py runs the same scene/params as the headline row).
-        # entry_budget 131072: 111k valid splat entries measured at frame
-        # 120 — the slice keeps the bin scatter + splat sort off the full
-        # 4*pair_budget rows; the engine doubles it on entry_dropped
-        # evidence (_check_diag)
-        render=RenderParams(num_rays=4096, pair_budget=32768, bin_capacity=64,
-                            entry_budget=131072),
+        # bin_capacity 128: at 64 the scene drops ~150 candidates from full
+        # view bins by frame 30 and the engine doubles it (recompile), so
+        # it starts at the adapted size.
+        # entry_budget 131072: 111k valid splat entries counted at frame
+        # 120 — the slice keeps the binning off the full 4*pair_budget
+        # rows; the engine doubles it on entry_dropped evidence
+        render=RenderParams(num_rays=4096, pair_budget=32768,
+                            bin_capacity=128, entry_budget=131072),
         width=1920,
         height=1080,
         history=1024,
         cam_pos=(0.7, 0.5),
         cam_zoom=1.2,
+    )
+
+
+def config_reference_demo() -> EngineConfig:
+    """The upstream's default demo scene at its particle count (115,960):
+    testimg4 at (0, 0) with velocity (0.1, 0.1) and testimg5 at (1.2, 0.8)
+    with (-0.1, -0.1) (reference: src/twoplusone/mod.rs:86-113), here as
+    procedural discs of the images' 57,980 lit pixels each (the PNGs are not
+    part of this repository; tools/refdemo.py loads them when present),
+    rendered retarded at 1080p.
+
+    Render budgets: band=4 covers radial speeds to ~0.4c (the bodies close
+    at 0.28c; RenderDiag.band_truncated guards it); splat_cells=4 is exact
+    here (reach 4.9 px <= half a 16 px cell); pair_budget 262144 and
+    entry_budget 524288 hold the ~130k valid crossings and their ~360k
+    splat entries with headroom (RenderDiag.pairs_used / entry_dropped
+    guard them); retina_budget 8192 holds the ~2.5k boundary pairs;
+    bin_capacity 128 keeps the densest view bins drop-free (96 dropped a few
+    candidates)."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(57980, (0.0, 0.0), (0.1, 0.1), BLUE),
+                _blob(57980, (1.2, 0.8), (-0.1, -0.1), RED),
+            )
+        ),
+        render=RenderParams(
+            num_rays=4096, pair_budget=262144, entry_budget=524288,
+            bin_capacity=128, band=4, splat_cells=4, retina_budget=8192,
+        ),
+        width=1920,
+        height=1080,
+        history=1024,
+        cam_pos=(0.6, 0.4),
+        cam_zoom=2.0,
     )
 
 
@@ -446,6 +481,7 @@ CONFIGS = {
     "png_demo": config_png_demo,
     "two_body_collision": config_two_body_collision,
     "flagship_1080p": config_flagship_1080p,
+    "reference_demo": config_reference_demo,
     "accelerated_camera": config_accelerated_camera,
     "boosted_observer": config_boosted_observer,
     "conical_defect": config_conical_defect,

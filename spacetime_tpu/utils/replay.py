@@ -1,7 +1,7 @@
 """Deterministic record/replay of interactive sessions.
 
 The reference has no equivalent (debugging a GPU app means re-driving it by
-hand); on TPU the whole frame is a pure function of (state, camera, time,
+hand); here the whole frame is a pure function of (state, camera, time,
 inputs), so capturing the per-frame INPUTS — key dict + live hotswap
 settings — is enough to reproduce a session bit-exactly on the same
 backend/code.  The log is JSONL: a header line with a config fingerprint,

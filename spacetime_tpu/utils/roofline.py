@@ -1,20 +1,16 @@
-"""Roofline / MFU accounting for compiled XLA programs.
+"""Roofline accounting for compiled XLA programs.
 
 The reference instruments per-stage GPU time (reference: src/querybank.rs)
-but never anchors it to hardware capability.  Here every headline bench row
-carries achieved FLOP/s and HBM bandwidth as fractions of the chip's peak,
-from `compiled.cost_analysis()` (XLA's static per-program cost model) divided
-by measured wall time.
+but never anchors it to hardware capability.  Here a bench row carries its
+achieved FLOP/s and memory bandwidth as fractions of the card's published
+peaks, from `compiled.cost_analysis()` (XLA's static per-program cost model)
+divided by a measured time.
 
-Peaks are per-chip datasheet numbers; the default table covers the v5e
-(TPU v5 lite) this project benches on.  XLA's flop count is the *algorithmic*
-count of the compiled HLO (post-fusion, pre-padding), so mfu here is a lower
-bound: lane-padding waste makes the hardware do more raw work than counted.
-Conversely "bytes accessed" is the cost model's static operand count, which
-still bills accesses that fusion keeps VMEM-resident — an UPPER bound on true
-HBM traffic, so hbm_util can legitimately read above 100% on heavily fused
-programs (it means "the program reuses more data than HBM could stream", not
-a measurement error).  Trace-derived per-op times remain the ground truth.
+This workload is f32 vector math (no matrix products on the main path), so
+the compute peak is the card's f32 rate outside the tensor cores.  XLA's
+"bytes accessed" counts every operand of every fused op, including data a
+fusion keeps on chip, so it is an UPPER bound on memory traffic; trace-
+derived kernel times (utils/profiling.py) remain the ground truth.
 """
 
 from __future__ import annotations
@@ -23,45 +19,43 @@ from typing import NamedTuple
 
 import jax
 
-# per-chip peaks: (name, peak FLOP/s dense matmul bf16, peak FLOP/s fp32
-# vector, HBM bytes/s).  v5e: 197 TFLOP/s bf16 MXU, ~0.9 TFLOP/s-class VPU
-# per-lane estimate is not published — we report against the bf16 MXU peak
-# (the honest "how far from the chip's absolute ceiling" number) AND HBM.
-_PEAKS = {
-    "v5e": {"flops_bf16": 197e12, "hbm_Bps": 819e9},
-    "v5p": {"flops_bf16": 459e12, "hbm_Bps": 2765e9},
-    "v4": {"flops_bf16": 275e12, "hbm_Bps": 1228e9},
-    "cpu": {"flops_bf16": 1e11, "hbm_Bps": 5e10},  # placeholder for tests
+
+class Peak(NamedTuple):
+    flops_f32: float  # FLOP/s, f32 outside the tensor cores
+    hbm_Bps: float  # device-memory bytes/s
+    source: str
+
+
+# keyed by jax.devices()[0].device_kind.  A device missing here is an error.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peak(
+        flops_f32=67e12, hbm_Bps=3.35e12,
+        source="NVIDIA H100 Tensor Core GPU datasheet, SXM: 67 TFLOP/s FP32, "
+               "3.35 TB/s HBM3 (at the 700 W power limit)",
+    ),
 }
 
 
+def peak_for(device_kind: str) -> Peak:
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r} "
+            f"(known: {sorted(PEAKS)})"
+        ) from None
+
+
 def chip_kind() -> str:
-    """Chip key for the `_PEAKS` table.  Unrecognized TPU kinds rate
-    against the v5e row (this project's bench chip — a stated assumption,
-    not a silent one: summary() prints the chip name).  Anything that is
-    neither a TPU nor a CPU (e.g. a GPU backend) returns "unknown", and
-    mfu/hbm_util report 0 rather than rating the wrong chip's peaks."""
-    d = jax.devices()[0]
-    kind = getattr(d, "device_kind", "") or ""
-    k = kind.lower()
-    if "v5 lite" in k or "v5e" in k or "v5lite" in k:
-        return "v5e"
-    if "v5p" in k or "v5 pod" in k:
-        return "v5p"
-    if "v4" in k:
-        return "v4"
-    if d.platform == "cpu":
-        return "cpu"
-    if d.platform == "tpu" or "tpu" in k:
-        return "v5e"  # assumed: the only TPU this repo benches on
-    return "unknown"
+    """device_kind of jax.devices()[0] (the key of PEAKS)."""
+    return jax.devices()[0].device_kind
 
 
 class Roofline(NamedTuple):
     flops: float  # algorithmic FLOPs per program execution (XLA count)
-    bytes_accessed: float  # HBM bytes per execution (XLA count)
-    seconds: float  # measured wall time per execution
-    chip: str
+    bytes_accessed: float  # memory bytes per execution (XLA count)
+    seconds: float  # measured time per execution
+    chip: str  # device_kind
 
     @property
     def achieved_flops(self) -> float:
@@ -72,53 +66,35 @@ class Roofline(NamedTuple):
         return self.bytes_accessed / self.seconds if self.seconds else 0.0
 
     @property
-    def mfu(self) -> float:
-        """Fraction of the chip's dense-matmul peak (absolute ceiling);
-        0 when the chip has no peak table entry."""
-        peaks = _PEAKS.get(self.chip)
-        return self.achieved_flops / peaks["flops_bf16"] if peaks else 0.0
+    def flops_util(self) -> float:
+        """Fraction of the card's f32 peak."""
+        return self.achieved_flops / peak_for(self.chip).flops_f32
 
     @property
     def hbm_util(self) -> float:
-        peaks = _PEAKS.get(self.chip)
-        return self.achieved_Bps / peaks["hbm_Bps"] if peaks else 0.0
+        return self.achieved_Bps / peak_for(self.chip).hbm_Bps
 
     @property
-    def arithmetic_intensity(self) -> float:
-        """FLOPs per HBM byte; compare to peak_flops/peak_BW (~240 for v5e
-        bf16) to see which wall the program is against."""
-        return self.flops / self.bytes_accessed if self.bytes_accessed else 0.0
+    def bound(self) -> str:
+        """Which peak bounds the least possible time: 'memory' or 'compute'."""
+        pk = peak_for(self.chip)
+        return ("memory" if self.bytes_accessed / pk.hbm_Bps
+                >= self.flops / pk.flops_f32 else "compute")
 
     def summary(self) -> str:
-        if self.chip not in _PEAKS:
-            return (
-                f"{self.flops/1e9:.2f} GFLOP, {self.bytes_accessed/1e9:.2f} GB "
-                f"per frame | achieved {self.achieved_flops/1e12:.3f} TFLOP/s, "
-                f"HBM {self.achieved_Bps/1e9:.0f} GB/s "
-                f"(no peak table for chip '{self.chip}' — utilization unrated)"
-            )
         return (
             f"{self.flops/1e9:.2f} GFLOP, {self.bytes_accessed/1e9:.2f} GB "
             f"per frame | achieved {self.achieved_flops/1e12:.3f} TFLOP/s "
-            f"({100*self.mfu:.2f}% of {self.chip} bf16 peak), "
-            f"HBM {self.achieved_Bps/1e9:.0f} GB/s "
-            f"({100*self.hbm_util:.1f}% of peak; static-count bytes — "
-            f"VMEM-resident reuse included, may exceed 100%), "
-            f"intensity {self.arithmetic_intensity:.1f} flop/B"
+            f"({100*self.flops_util:.2f}% of the {self.chip} f32 peak), "
+            f"{self.achieved_Bps/1e9:.0f} GB/s ({100*self.hbm_util:.1f}% of "
+            f"peak; static-count bytes, an upper bound), {self.bound}-bound"
         )
 
 
 def cost_of(compiled) -> tuple[float, float]:
     """(flops, bytes_accessed) from a compiled function's cost analysis."""
     ca = compiled.cost_analysis()
-    if isinstance(ca, (list, tuple)):  # older jax returns [dict]
-        ca = ca[0] if ca else {}
-    flops = float(ca.get("flops", 0.0))
-    by = ca.get("bytes accessed", None)
-    if by is None:
-        by = sum(v for k, v in ca.items()
-                 if isinstance(v, (int, float)) and k.startswith("bytes accessed"))
-    return flops, float(by or 0.0)
+    return float(ca.get("flops", 0.0)), float(ca.get("bytes accessed", 0.0))
 
 
 def measure(jitted_fn, args, seconds: float) -> Roofline:

@@ -5,7 +5,7 @@ bracketing RK4 / grid update / meshgen, and a debug UI showing frame-time
 average, 1% low and 0.1% low over a 2000-sample window
 (reference: src/querybank.rs:5-47, src/debugui.rs:44-51,64-83).
 
-TPU equivalent: host `time.perf_counter` around `block_until_ready`
+Equivalent here: host `time.perf_counter` around `block_until_ready`
 boundaries (per-stage device timing needs jax.profiler traces; the headless
 stage timer here measures stage wall time with an explicit sync, which is the
 honest analog of a fence wait)."""

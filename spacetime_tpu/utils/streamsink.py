@@ -2,7 +2,7 @@
 (native/streamsink.cpp).
 
 The reference shows frames in a native window (reference: src/boilerplate.rs
-swapchain present + src/debugui.rs overlay); on a headless TPU host the
+swapchain present + src/debugui.rs overlay); on a headless accelerator host the
 equivalent is a browser-viewable live stream.  `StreamSink.submit` costs the
 simulation thread one frame copy; JPEG encoding and client IO run on native
 threads.  Falls back to a pure-Python ThreadingHTTPServer + PIL encoder when

@@ -81,14 +81,15 @@ def test_warp_jacobian_bounded_by_stretch():
             assert float(jnp.max(d)) <= s * 1.01
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("backend", ["xla", "triton"])
 def test_camera_frame_matches_oracle(backend):
-    """Production warped render == brute warped oracle (opaque + x-ray)."""
+    """Production warped render == brute warped oracle (opaque + x-ray), on
+    both pixel passes (the Triton kernel in interpret mode)."""
     buf, particles, objects = _blob_buffer(10, (0.6, 0.45), (0.0, 0.0), 192)
     cam = Camera.create(pos=(0.35, 0.5), zoom=1.2, vel=(0.5, 0.0))
     params = raytrace.RenderParams(
         dt=H, bin_capacity=64, num_rays=512, camera_frame=True,
-        backend=backend,
+        backend=backend, triton_interpret=backend == "triton",
     )
     params = dataclasses.replace(
         params, cell_px=raytrace.auto_cell_px(params, 72, 72, 1.2)

@@ -261,7 +261,7 @@ def test_creep_permanent_deformation_vs_elastic():
     nbr[0, 2] = 1
     nbr[1, 0] = 0
     base = pack_particles(pos, vel, nbr, np.zeros(2, np.int32), capacity=256)
-    model = SoftbodyModel(capacity=256, use_pallas=False)
+    model = SoftbodyModel(capacity=256)
     damp = jnp.full((256,), 40.0)  # settle oscillations
 
     def run(table_row):

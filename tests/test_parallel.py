@@ -142,51 +142,10 @@ def test_graft_dryrun_multichip():
     ge.dryrun_multichip(8)
 
 
-def test_production_pallas_kernel_sharded_matches_single():
-    """The PRODUCTION collision kernel (Pallas sorted-window, interpret mode
-    on the CPU mesh) runs under shard_map with exact parity vs the
-    single-device step (VERDICT r2 #2: the sharded frame used to silently
-    swap in the XLA fallback physics)."""
-    particles, objects, model, buf, params = _setup()
-    import numpy as _np
-
-    from spacetime_tpu.ops import forces as forces_ops
-
-    # production config: Pallas kernel + shifted-slice springs
-    sb = scene.SceneBuilder()
-    sb.add(scene.disc_softbody(4, 0, (0.45, 0.45), (0.1, 0.0),
-                               lattice_pad=True), base_color=(0, 0, 1))
-    sb.add(scene.disc_softbody(4, 1, (0.52, 0.452), (-0.1, 0.0),
-                               lattice_pad=True), base_color=(1, 0, 0))
-    particles, objects = sb.build(capacity=256)
-    offsets = forces_ops.derive_spring_offsets(
-        _np.asarray(particles.neighbors))
-    base = SoftbodyModel(capacity=256, tile=64, wmax=1024,
-                         spring_offsets=offsets)
-
-    single_model = dataclasses.replace(
-        base, use_pallas=True, pallas_interpret=True)
-    single, _ = single_model.step(particles)
-
-    m = mesh_mod.make_mesh(4)
-    p_sh, _ = sharding.shard_state(particles, buf, m)
-    step = sharding.make_sharded_step(base, m, production_kernels=True)
-    multi = step(p_sh)
-    np.testing.assert_allclose(
-        np.asarray(single.pos), np.asarray(multi.pos), rtol=1e-6, atol=1e-7
-    )
-    np.testing.assert_allclose(
-        np.asarray(single.vel), np.asarray(multi.vel), rtol=1e-6, atol=1e-7
-    )
-
-
 def test_sharded_frame_collective_bytes_bounded():
-    """Communication bound for the production-kernel multi-chip frame: the
-    summed all-gather volume must stay O(N) — a few hundred bytes per
-    particle (sorted planes + pair tables), never O(T*N) ring history.
-    The replicated sorted-window planes are padded by wmax + chunk
-    alignment (ADDITIVE, so it dominates at this tiny N and vanishes at
-    production scale) — the bound models both terms."""
+    """Communication bound for the multi-chip frame: the summed all-gather
+    volume must stay O(N) — a few hundred bytes per particle (cell table +
+    pair tables), never O(T*N) ring history."""
     import re
 
     particles, objects, model, buf, params = _setup()
@@ -208,10 +167,7 @@ def test_sharded_frame_collective_bytes_bounded():
                         sz *= int(d)
                 total += sz * 4
     n = particles.capacity
-    # O(N) term (pair tables, own tiles) + additive wmax-padding term for
-    # the 4 stages x 2 replicated sorted planes (each padded to
-    # ~n + wmax + chunk alignment)
-    limit = 1280 * n + 4 * 2 * (model.wmax + 2048) * 4 * 2
+    limit = 1280 * n
     assert total <= limit, (
         f"all-gather volume {total} B exceeds budget {limit} B"
     )
@@ -243,7 +199,6 @@ def test_sharded_frame_with_creep_materials():
     p_sh, b_sh = sharding.shard_state(particles, buf, m)
     frame = sharding.make_sharded_frame(
         model, objects, params, 48, 48, m, materials=mats,
-        production_kernels=False,
     )
     p2, b2, img2 = frame(p_sh, b_sh, cam, jnp.float32(0.005))
     assert p2.rest_len is not None
@@ -410,10 +365,9 @@ def _engine_cfg(mode="retarded", zoom=0.5, **kw):
     )
 
 
-def _run_engines(cfg, n_frames=2, n_dev=4, production_kernels=False):
-    single = Engine(cfg)
-    multi = Engine(cfg, mesh=mesh_mod.make_mesh(n_dev),
-                   production_kernels=production_kernels)
+def _run_engines(cfg, n_frames=2, n_dev=4, single_cfg=None):
+    single = Engine(single_cfg or cfg)
+    multi = Engine(cfg, mesh=mesh_mod.make_mesh(n_dev))
     img1 = img2 = None
     for _ in range(n_frames):
         img1 = single.run_frame()
@@ -479,13 +433,16 @@ def test_engine_mesh_camera_frame():
 
 
 def test_engine_mesh_production_kernels():
-    """Engine(mesh=...) default: the production Pallas kernels (collision +
-    pixel pass, interpret mode on the CPU mesh) under shard_map, driven by
-    the Engine's fused frame, match the single-device XLA engine."""
+    """The single-device GPU configuration — the Triton pixel pass (here in
+    interpret mode) — matches the mesh engine, whose partitioned frame runs
+    the XLA block map (Engine._apply_mesh_render)."""
     cfg = _engine_cfg("retarded")
-    single, multi, img1, img2 = _run_engines(
-        cfg, n_frames=1, production_kernels=True
+    triton = dataclasses.replace(
+        cfg, render=dataclasses.replace(cfg.render, backend="triton",
+                                        triton_interpret=True),
     )
+    single, multi, img1, img2 = _run_engines(cfg, n_frames=1,
+                                             single_cfg=triton)
     assert (img1 < 0.999).any(), "test scene rendered all-white"
     np.testing.assert_allclose(img1, img2, atol=2e-5)
     np.testing.assert_allclose(
@@ -499,13 +456,13 @@ def test_engine_mesh_checkpoint_roundtrip(tmp_path):
     and the next frames match a never-checkpointed mesh engine."""
     cfg = _engine_cfg("retarded")
     m = mesh_mod.make_mesh(4)
-    a = Engine(cfg, mesh=m, production_kernels=False)
+    a = Engine(cfg, mesh=m)
     a.run_frame()
     path = str(tmp_path / "ck.npz")
     a.save_checkpoint(path)
     img_ref = np.asarray(a.run_frame())
 
-    b = Engine(cfg, mesh=m, production_kernels=False)
+    b = Engine(cfg, mesh=m)
     b.load_checkpoint(path)
     from jax.sharding import PartitionSpec as P
 

@@ -178,6 +178,33 @@ def test_fast_matches_oracle_xray():
     assert mismatch < 0.01, f"{mismatch:.3%} pixels differ"
 
 
+@pytest.mark.parametrize("splat_cells", [9, 4])
+def test_auto_cell_px_meets_the_splat_coverage(splat_cells):
+    """The fitted view cell is the least that covers the splat mode (2x2
+    corner splats need twice the 3x3 edge), so cell_too_small stays off and
+    the fast path still matches the oracle."""
+    params = dataclasses.replace(SMALL, opaque=False, splat_cells=splat_cells,
+                                 bin_capacity=256)
+    zoom, w = 0.7, 72
+    k = raytrace.auto_cell_px(params, w, w, zoom)
+    px = zoom / w
+    edge = raytrace.min_cell_edge(params)
+    assert k * px >= edge > (k - 1) * px
+    buf, particles, objects = _drifting_blob_buffer(
+        4, offset=(0.15, 0.05), vel=(0.2, -0.1), n_ticks=64,
+    )
+    cam = Camera.create(pos=(0.0, 0.0), zoom=zoom)
+    a = np.asarray(raytrace.render_retarded_brute(
+        buf, particles.object_index, objects, cam, w, w, params))
+    b, diag = raytrace.render_retarded_with_diag(
+        buf, particles.object_index, objects, cam, w, w,
+        dataclasses.replace(params, cell_px=k))
+    assert not bool(diag.cell_too_small)
+    assert int(diag.bin_dropped) == 0
+    mismatch = np.mean(np.any(np.abs(a - np.asarray(b)) > 1e-3, axis=-1))
+    assert mismatch < 0.01, f"{mismatch:.3%} pixels differ"
+
+
 def test_fast_matches_oracle_opaque():
     buf, particles, objects = _drifting_blob_buffer(
         4, offset=(0.15, 0.05), vel=(0.2, -0.1), n_ticks=64,

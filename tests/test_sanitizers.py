@@ -1,4 +1,4 @@
-"""Runtime sanitizers — the TPU-native analog of the reference's Vulkan
+"""Runtime sanitizers — this engine's analog of the reference's Vulkan
 validation layer + debug messenger (SURVEY.md §5: boilerplate.rs:435-533).
 
 `checkify` instruments the jitted physics step with NaN/div/OOB checks the
@@ -32,7 +32,7 @@ def test_checkify_clean_through_collision():
 
     def step(q):
         q, aux = rk4_ops.physics_step(
-            q, DEFAULT_PARAMS, rest, 64, 16, "rk4", use_pallas=False
+            q, DEFAULT_PARAMS, rest, 64, 16, "rk4"
         )
         return q
 
@@ -53,7 +53,7 @@ def test_speed_invariant_never_reaches_c():
     p, _ = _collision_scene()
     rest = jnp.asarray(DEFAULT_PARAMS.rest_lengths())
     step = jax.jit(lambda q: rk4_ops.physics_step(
-        q, DEFAULT_PARAMS, rest, 64, 16, "rk4", use_pallas=False)[0])
+        q, DEFAULT_PARAMS, rest, 64, 16, "rk4")[0])
     q = p
     vmax = 0.0
     for _ in range(120):
@@ -77,7 +77,7 @@ def test_checkify_catches_injected_nan():
 
     def step(q):
         return rk4_ops.physics_step(
-            q, DEFAULT_PARAMS, rest, 64, 16, "rk4", use_pallas=False
+            q, DEFAULT_PARAMS, rest, 64, 16, "rk4"
         )[0]
 
     checked = checkify.checkify(jax.jit(step), errors=checkify.float_checks)

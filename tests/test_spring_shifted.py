@@ -95,43 +95,3 @@ def test_full_step_padded_matches_unpadded_physics():
     np.testing.assert_allclose(
         np.asarray(p_p.pos)[act_p], np.asarray(p_u.pos)[act_u], atol=1e-5
     )
-
-
-def test_pallas_include_subtract_matches_reference_path(rng):
-    """physics_step with shifted offsets (exclude_bonds moved out of the
-    kernel) must match the XLA reference path on a compressed overlap scene
-    where bonded pairs ARE within collision distance."""
-    import jax.numpy as jnp
-
-    sb = scene.SceneBuilder()
-    sb.add(scene.disc_softbody(4, 0, (0.0, 0.0), (0.06, 0.0), lattice_pad=True))
-    sb.add(scene.disc_softbody(4, 1, (0.02, 0.004), (-0.06, 0.0), lattice_pad=True))
-    p, _ = sb.build(capacity=256)
-    # squeeze the lattice so bonded neighbors fall below collision distance
-    pos = np.array(p.pos)  # writable copy
-    act = np.asarray(p.active)
-    center = pos[act].mean(axis=0)
-    pos[act] = center + (pos[act] - center) * 0.5
-    import dataclasses as dc
-    p = dc.replace(p, pos=jnp.asarray(pos))
-
-    offsets = forces_ops.derive_spring_offsets(np.asarray(p.neighbors))
-    model = SoftbodyModel(capacity=p.capacity)
-    rest = jnp.asarray(model.params.rest_lengths())
-
-    # squeezed lattice doubles density: cell capacity 32 keeps the XLA
-    # reference path exact (grid_overflow would mean IT dropped candidates)
-    p_ref, aux_ref = rk4_ops.physics_step(
-        p, model.params, rest, 64, 32, "rk4", use_pallas=False
-    )
-    assert int(aux_ref.grid_overflow) == 0
-    p_pal, aux_pal = rk4_ops.physics_step(
-        p, model.params, rest, 64, 32, "rk4", use_pallas=True,
-        spring_offsets=offsets, pallas_interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(p_pal.pos)[act], np.asarray(p_ref.pos)[act],
-        rtol=1e-4, atol=1e-6,
-    )
-    assert int(aux_pal.bonds_broken) == int(aux_ref.bonds_broken)
-    assert int(aux_pal.window_truncated) == 0

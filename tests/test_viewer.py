@@ -3,16 +3,22 @@ live-tweakable settings).  Runs the REAL run_viewer loop on the Agg backend
 with synthetic key events: pan, zoom, pause toggle, live max-FPS hotswap,
 quit."""
 
-import matplotlib
-
-matplotlib.use("Agg")
-
 import numpy as np
+import pytest
 
 from spacetime_tpu.engine import Engine
 from spacetime_tpu.ops.raytrace import RenderParams
 from spacetime_tpu.utils.config import EngineConfig, SceneSpec
 from spacetime_tpu.viewer import apply_key, run_viewer
+
+
+@pytest.fixture(autouse=True)
+def _agg_backend():
+    # imported here, not at module level, so collecting this file needs no
+    # matplotlib (the GPU machine runs `pytest tests -m gpu` without it)
+    import matplotlib
+
+    matplotlib.use("Agg")
 
 
 def _engine():

@@ -4,8 +4,8 @@
 Two 1024 x 512 box lattices on a collision course; box bodies have zero
 lattice-pad waste, so capacity == particle count == 2^20 exactly.
 
-Default: physics-only stepping with the Pallas sorted-window collision
-kernel.  `--frame` additionally benches a FULL fused frame (physics step +
+Default: physics-only stepping (the XLA cell-table collision path).
+`--frame` additionally benches a FULL fused frame (physics step +
 worldline push + retarded opaque render) at capacity: history 128 keeps the
 mirrored (2T, N) ring at ~4.3 GB; the 960x540 camera watches the collision
 interface (the cone sweep still scans every worldline — visibility culling
@@ -19,15 +19,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, ".")
 
 from spacetime_tpu import scene  # noqa: E402
 from spacetime_tpu.models.softbody import SoftbodyModel  # noqa: E402
 from spacetime_tpu.ops import forces as forces_ops  # noqa: E402
+from spacetime_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+from spacetime_tpu.utils.device import card, require_gpu  # noqa: E402
+
+enable_compilation_cache()
 
 
 def main():
+    info = require_gpu()
+    print(f"# {info} | {card()}", file=sys.stderr)
     sb = scene.SceneBuilder()
     sb.add(
         scene.mask_to_softbody(
@@ -49,14 +54,10 @@ def main():
     print(f"# particles: {n} (capacity {particles.capacity} = 2^20)",
           file=sys.stderr)
 
-    # scene spans 1024*0.0035 = 3.58 ls: grid 768*0.005 = 3.84 ls; a 1024-
-    # wide lattice row is ~717 cells x ~4 particles -> wmax 8192
+    # scene spans 1024*0.0035 = 3.58 ls: grid 768*0.005 = 3.84 ls
     model = SoftbodyModel(
         capacity=particles.capacity,
         grid_dim=768,
-        wmax=8192,
-        split_windows=True,  # ~4k particles/row: per-row spans cut the
-        # merged window's ~8 mostly-far DMA chunks to ~3 near ones
         spring_offsets=forces_ops.derive_spring_offsets(
             np.asarray(particles.neighbors)
         ),
@@ -74,7 +75,6 @@ def main():
     print(
         f"# physics step: {dt*1e3:.2f} ms ({1/dt:.1f} steps/s, "
         f"{n/dt/1e6:.0f} M particle-steps/s); "
-        f"window_truncated={int(aux.window_truncated)} "
         f"grid_overflow={int(aux.grid_overflow)}",
         file=sys.stderr,
     )
@@ -151,18 +151,6 @@ def bench_frame(particles, objects, model, history=128,
         file=sys.stderr,
     )
     print(f"# frame roofline: {rl.summary()}", file=sys.stderr)
-    try:
-        from PIL import Image
-
-        import numpy as np
-        arr = np.asarray(
-            jnp.clip(img * 255.0, 0, 255).astype(jnp.uint8))
-        if arr.ndim == 3 and arr.shape[0] == 3:  # planar (3,H,W) -> (H,W,3)
-            arr = arr.transpose(1, 2, 0)
-        Image.fromarray(arr).save("/tmp/frame_1m.png")
-        print("# wrote /tmp/frame_1m.png", file=sys.stderr)
-    except Exception as e:  # PNG dump is best-effort, but never silent
-        print(f"# frame PNG dump failed: {e!r}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 origin with velocity (0.1, 0.1), testimg5 at (1.2, 0.8) with (-0.1, -0.1)
 (/root/reference/src/twoplusone/mod.rs:86-113), loaded through the PNG import
 path.  Falls back to procedural discs of the same particle count when the
-reference images are not mounted.  Used by tools/bench_116k.py and the trace
-tools so benches and profiles run the SAME workload."""
+reference images are not mounted — the `reference_demo` named config builds
+the same discs through the engine.  Used by tools/bench_116k.py."""
 
 import os
 import sys
@@ -56,23 +56,15 @@ def build_scene():
 
 
 def render_params(h):
-    # band=4 covers radial speeds to ~0.4c (bodies close at 0.28c; the
-    # band_truncated diag guards the assumption); splat_cells=4 is exact here
-    # (reach 4.9 px <= cell/2 = 8 px at zoom 2.0).  max_age: view corner 230
-    # ticks + band + 8 = 242, quantized up to 128 (the engine's own formula).
-    # entry_budget: 228.8k valid splat entries measured at full history
-    # (probe, round 3) of the 524k capacity — 262144 slices the bin scatter
-    # (the top render op, 2.4 ms traced) nearly in half with 15% headroom;
-    # RenderDiag.entry_dropped guards the assumption.
-    # segments=2: mean valid crossings/particle measured 1.09 here — rank
-    # compaction halves the pdata rows; segment_dropped guards overflow.
-    # retina_budget=8192: boundary pairs measured ~2.5k (2280 boundary
-    # particles x ~1.1) — one ray_chunk instead of two (-0.35 ms traced).
-    return raytrace.RenderParams(
-        dt=h, num_rays=4096, pair_budget=131072, entry_budget=262144,
-        bin_capacity=96, cell_px=16, occlusion_downsample=2, ray_chunk=8192,
-        band=4, splat_cells=4, retina_budget=8192, max_age=256,
-        segments=2,
+    """The reference_demo config's render budgets (utils/config.py) at the
+    ladder's cell_px=16 for this zoom, with the view-derived sweep bound the
+    engine would pick (view corner 230 ticks + band + 8, rounded up)."""
+    import dataclasses
+
+    from spacetime_tpu.utils.config import get_config
+
+    return dataclasses.replace(
+        get_config("reference_demo").render, dt=h, cell_px=16, max_age=256,
     )
 
 

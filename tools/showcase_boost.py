@@ -10,8 +10,11 @@ import sys
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, ".")
+
+from spacetime_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 from spacetime_tpu.engine import Engine, save_png  # noqa: E402
 from spacetime_tpu.utils.config import get_config  # noqa: E402

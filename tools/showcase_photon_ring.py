@@ -14,8 +14,11 @@ import sys
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, ".")
+
+from spacetime_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 from spacetime_tpu import scene  # noqa: E402
 from spacetime_tpu.camera import Camera  # noqa: E402

@@ -7,8 +7,11 @@ import sys
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, ".")
+
+from spacetime_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 from spacetime_tpu.engine import Engine, save_png  # noqa: E402
 from spacetime_tpu.utils.config import get_config  # noqa: E402
@@ -17,7 +20,7 @@ from spacetime_tpu.utils.config import get_config  # noqa: E402
 def main():
     # run deep enough that the worldlines braid through the impact; the
     # stock config collides at ~tick 180 — close the gap so a CPU render
-    # finishes in minutes (TPU runs use the config as-is)
+    # finishes in minutes (accelerator runs use the config as-is)
     import dataclasses
 
     from spacetime_tpu.utils.config import SceneSpec, _blob, BLUE, RED
